@@ -4,22 +4,41 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-1. build the hand-written CUDA kernels from csrc/ (nvcc, sm_90a);
-2. kernel phase: each kernel against its plain PyTorch version at the
-   decoder's main-path shapes, batch 1 and 2 (and 16, the largest bucket),
-   TF32 off on both sides, bar max|diff| / max|ref| < 1e-4 (float32,
-   another summation order), with CUDA-event times of both;
-3. model phase: the production-width decoder U-Net on the card (kernels)
-   against the same module on the CPU (plain versions) on a 128x128 input;
-4. serving phase: the three production-width models (random weights from a
-   seeded generator) behind the port's HTTP API on a localhost port:
-   /health and three /terrain requests (a 256x256 tile, the same tile again
-   - byte-identical - and an overlapping crop), with launch counts proving
-   the decoder ran through both kernels (26 fused blocks + 2 convs per
-   decoder forward).
+1. build the hand-written CUDA kernels from csrc/ (one nvcc per source, in
+   parallel, sm_90a);
+2. kernel phase: each kernel against its plain PyTorch version on the same
+   inputs, TF32 off on both sides, bar max|diff| / max|ref| < 1e-4 (float32,
+   another summation order), with CUDA-event times of both: the fused block
+   and the 3x3 conv at the decoder's shapes (batch 1, 2 and 16), the
+   attention at the base model's midblock shape (batch 1, 16, 64), the JAX
+   package's test shapes and the largest eligible map (HW = 2048);
+3. threefry phase: the card's threefry noise crop equals the CPU's bit for
+   bit, on a crop with negative coordinates;
+4. model phase: the production-width decoder U-Net (128x128 input) and base
+   U-Net (attention_impl="pallas", 64x64 latents with a 58-dim conditioning
+   vector) on the card (kernels) against the same modules on the CPU (plain
+   versions); then one latent_init call at bucket 64 with the attention
+   kernel and with the plain attention, timed;
+5. api phase: the three production-width models (random weights from a
+   seeded generator) behind the /terrain API with portable noise on a
+   localhost port: /health and three 256x256 requests (a tile, the same tile
+   again - byte-identical - and an overlapping crop);
+6. Minecraft phase: the same models saved as a world directory (reference
+   layout) and served by the Minecraft server's entry point,
+   ``minecraft_api.main([world_dir, "--device", "cuda", "--threaded", ...])``,
+   on a localhost port, WorldPipeline at its defaults (threefry noise, T=2):
+   /health, a 256x256 tile at scale 1 and again (byte-identical), a tile at
+   scale 4, the legacy /90 route, and four adjacent tiles requested at once
+   from four threads; then, with the cache emptied, the same four one at a
+   time, which must agree with the concurrent answers (elevation within
+   1 m, biome ids equal on >= 99% of pixels).
+Phases 5 and 6 each zero the launch counts before their requests and read
+them after: attention launches = base-model forwards (latent_init +
+latent_step calls), fused-block launches = 26 x decoder forwards, conv
+launches = 2 x decoder forwards.
 
-The last lines are a JSON kernel report, the card's name and power limit,
-and {"ok": true, "device": {...}}.
+The last lines are a JSON kernel report (launches from the Minecraft
+phase), the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 import configparser
 import copy
@@ -34,6 +53,15 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1e-4
 SEED = 20261016
+SRC = "terrain_diffusion_tpu_torch/csrc/"
+KERNELS = {  # name -> (source, TPU kernel it replaces, case reported in the JSON line)
+    "fused_block": (SRC + "fused_block.cu", "terrain_diffusion_tpu/ops/pallas_block.py:420",
+                    "enc 512x512 64->64 b2"),
+    "conv3x3": (SRC + "conv3x3.cu", "terrain_diffusion_tpu/ops/pallas_block.py:595",
+                "out conv 512x512 64->1 b2"),
+    "attention": (SRC + "attention.cu", "terrain_diffusion_tpu/ops/pallas_attention.py:80",
+                  "midblock 8x8 12x64 b64"),
+}
 
 
 def fail(msg: str):
@@ -77,7 +105,11 @@ def time_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase(torch, fb, dev):
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def kernel_phase(torch, fb, attn, dev):
     g = torch.Generator().manual_seed(SEED)
 
     def rand(*shape, scale=1.0):
@@ -102,6 +134,11 @@ def kernel_phase(torch, fb, dev):
         args = (rand(n, 512, 512, cin), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5))
         return lambda: fb.conv3x3(*args), lambda: fb.conv3x3_reference(*args)
 
+    def attn_case(shape, heads):
+        qkv = rand(*shape, scale=3.0)
+        return (lambda: attn.fused_pixelnorm_attention(qkv, heads),
+                lambda: attn.pixelnorm_attention_reference(qkv, heads))
+
     cases = []
     for n in (1, 2):
         cases += [
@@ -121,6 +158,11 @@ def kernel_phase(torch, fb, dev):
         ("fused_block", "enc 512x512 64->64 b16", block_case(16, 512, 64, 64, "enc")),
         ("conv3x3", "out conv 512x512 64->1 b16", conv_case(16, 64, 1)),
     ]
+    cases += [("attention", f"midblock 8x8 12x64 b{n}", attn_case((n, 8, 8, 2304), 12))
+              for n in (1, 16, 64)]
+    cases += [("attention", "jax test 8x8 1x64 b2", attn_case((2, 8, 8, 192), 1)),
+              ("attention", "jax test 16x16 2x64 b1", attn_case((1, 16, 16, 384), 2)),
+              ("attention", "largest 32x64 3x64 b1", attn_case((1, 32, 64, 576), 3))]
     rows = []
     for kernel, name, (run, ref) in cases:
         got = run()
@@ -130,7 +172,7 @@ def kernel_phase(torch, fb, dev):
         rel = err_abs / float(want.abs().max())
         ms, plain_ms = time_ms(run), time_ms(ref)
         print(f"[kernel] {kernel:11s} {name:34s} rel_err={rel:.3e} "
-              f"max_abs_err={err_abs:.3e} kernel={ms:.3f} ms plain={plain_ms:.3f} ms",
+              f"max_abs_err={err_abs:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms",
               flush=True)
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(rel < KERNEL_TOL, f"{name}: rel err {rel:.3e} >= {KERNEL_TOL}")
@@ -138,6 +180,33 @@ def kernel_phase(torch, fb, dev):
                          ms=ms, plain_ms=plain_ms))
         del got, want
     return rows
+
+
+def threefry_phase(torch, dev):
+    """The threefry field on the card equals the CPU's, bit for bit."""
+    from terrain_diffusion_tpu_torch.ops.noise_field import threefry_noise_patch
+
+    kw = dict(h=512, w=768, channels=5, tile_h=256, tile_w=256)
+    seed, y0, x0 = 2 ** 63 + SEED, -300, -1001
+    t0 = time.perf_counter()
+    got = threefry_noise_patch(seed, y0, x0, device=dev, **kw)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1000
+    want = threefry_noise_patch(seed, y0, x0, device="cpu", **kw)
+    diff = float((got.cpu() - want).abs().max())
+    std = float(want.std())
+    print(f"[threefry] crop (5, 512, 768) at ({y0}, {x0}): card vs CPU max|diff|={diff}, "
+          f"std={std:.4f}, card {dt:.1f} ms", flush=True)
+    check(torch.equal(got.cpu(), want), f"threefry noise on the card differs from the CPU: {diff}")
+    check(abs(std - 1.0) < 0.01, f"threefry noise std {std}")
+
+
+def set_attention_impl(model, impl: str):
+    from terrain_diffusion_tpu_torch.nn.layers import UNetBlock
+
+    for m in model.modules():
+        if isinstance(m, UNetBlock):
+            m.attention_impl = impl
 
 
 def build_models(torch, dev):
@@ -148,7 +217,10 @@ def build_models(torch, dev):
     for rel in ("configs/diffusion_coarse/diffusion_coarse.cfg",
                 "configs/diffusion_base/diffusion_192-3.cfg",
                 "configs/diffusion_decoder/diffusion_decoder_64-3.cfg"):
-        m = EDMUnet2D(EDMUnetConfig.from_dict(model_config(rel)), device=dev, generator=g)
+        cfg = model_config(rel)
+        if "diffusion_base" in rel:  # the JAX value that asks for the attention kernel
+            cfg["block_kwargs"] = {**cfg.get("block_kwargs", {}), "attention_impl": "pallas"}
+        m = EDMUnet2D(EDMUnetConfig.from_dict(cfg), device=dev, generator=g)
         with torch.no_grad():  # init leaves the gains at 0: a constant network
             for name, p in m.named_parameters():
                 if name.endswith("emb_gain"):
@@ -160,19 +232,58 @@ def build_models(torch, dev):
     return models
 
 
-def model_phase(torch, decoder, dev):
-    """Decoder U-Net on the card (kernels) vs the same module on the CPU
-    (plain versions), 128x128 input: the 128-px level takes the kernels."""
+def model_phase(torch, np, attn, models, dev):
+    """Decoder and base U-Nets on the card (kernels) vs the same modules on
+    the CPU (plain versions); then latent_init at bucket 64, kernel vs plain
+    attention."""
+    from terrain_diffusion_tpu_torch.pipeline.world import (SCHED, SD, WorldPipeline,
+                                                            compute_sigmas)
+
     g = torch.Generator().manual_seed(SEED + 2)
+    decoder, base = models[2], models[1]
     x = torch.randn((1, 128, 128, 5), generator=g)
     nl = torch.full((1,), 1.2)
     with torch.no_grad():
         got = decoder(x.to(dev), nl.to(dev), []).cpu()
         want = copy.deepcopy(decoder).cpu()(x, nl, [])
-    rel = float((got - want).abs().max() / want.abs().max())
+    rel = rel_err(got, want)
     print(f"[model] decoder 128x128 card vs CPU: rel_err={rel:.3e}", flush=True)
     check(bool(torch.isfinite(got).all()) and rel < KERNEL_TOL,
           f"decoder forward on the card disagrees with the CPU: {rel:.3e}")
+
+    x = torch.randn((2, 64, 64, 5), generator=g)
+    cond = torch.randn((2, 58), generator=g)
+    nl = torch.full((2,), 0.9)
+    with torch.no_grad():
+        before = attn.fused_pixelnorm_attention.launches
+        got = base(x.to(dev), nl.to(dev), [cond.to(dev)]).cpu()
+        launched = attn.fused_pixelnorm_attention.launches - before
+        want = copy.deepcopy(base).cpu()(x, nl, [cond])
+    rel = rel_err(got, want)
+    print(f"[model] base 64x64 (attention kernel) card vs CPU: rel_err={rel:.3e}, "
+          f"attention launches {launched}", flush=True)
+    check(launched == 1, f"base forward launched the attention kernel {launched} times")
+    check(bool(torch.isfinite(got).all()) and rel < KERNEL_TOL,
+          f"base forward on the card disagrees with the CPU: {rel:.3e}")
+
+    # one latent_init window call at bucket 64, kernel vs plain attention
+    pipe = WorldPipeline(seed=SEED, device=dev, log_mode="info").set_models(*models)
+    t_init = float(np.arctan(float(compute_sigmas(SCHED, 20)[0]) / SD))  # as the stage has it
+    init_f = pipe._latent_fn(t_init, 5819, with_prev=False)
+    ctxs = np.stack([np.zeros(64, np.int64), np.arange(64) // 8, np.arange(64) % 8], axis=1)
+    coarse = torch.randn((64, 7, 4, 4), generator=g).to(dev)
+    coarse[:, -1] = 1.0  # the window-weight channel
+    out, ms = {}, {}
+    with torch.no_grad():
+        for impl in ("pallas", "xla"):
+            set_attention_impl(base, impl)
+            out[impl] = init_f(ctxs, coarse)
+            ms[impl] = time_ms(lambda: init_f(ctxs, coarse), iters=3)
+    set_attention_impl(base, "pallas")
+    rel = rel_err(out["pallas"][:, :-1], out["xla"][:, :-1])
+    print(f"[latent] latent_init b64: attention kernel {ms['pallas']:.1f} ms, plain attention "
+          f"{ms['xla']:.1f} ms, rel_err={rel:.3e}", flush=True)
+    check(rel < KERNEL_TOL, f"latent_init with the kernel disagrees with plain: {rel:.3e}")
 
 
 def http_get(port: int, path: str):
@@ -180,34 +291,75 @@ def http_get(port: int, path: str):
         return r.status, dict(r.headers), r.read()
 
 
-def serving_phase(torch, np, fb, models, dev):
+class Server:
+    """A WSGI app on an ephemeral localhost port, in a thread."""
+
+    def __init__(self, app, **kw):
+        self.httpd = app.make_server("127.0.0.1", 0, quiet=True, **kw)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+
+
+def stage_calls(pipe) -> dict:
+    return {k: v[0] for k, v in pipe.stage_timings.items()}
+
+
+def check_launches(torch, cuda_lib, fb, attn, pipe, calls_before, label) -> dict:
+    """Launch counts since the last reset against the model forwards the
+    pipeline's stages ran."""
+    calls = stage_calls(pipe)
+    n = {k: calls.get(k, 0) - calls_before.get(k, 0)
+         for k in ("latent_init", "latent_step", "decoder")}
+    n_base, n_dec = n["latent_init"] + n["latent_step"], n["decoder"]
+    launches = {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches,
+                "attention": attn.fused_pixelnorm_attention.launches}
+    print(f"[{label}] base forwards {n_base}, decoder forwards {n_dec}, launches {launches}",
+          flush=True)
+    check(n_base > 0 and n_dec > 0, f"{label}: no base or decoder forward ran")
+    want = {"fused_block": 26 * n_dec, "conv3x3": 2 * n_dec, "attention": n_base}
+    check(launches == want, f"{label}: launch counts {launches} != {want}")
+    for stage, v in pipe.timing_summary().items():
+        print(f"[{label}] stage {stage:16s} calls={v['calls']:4d} "
+              f"total={v['total_s'] * 1000:.1f} ms mean={v['mean_ms']:.2f} ms", flush=True)
+    print(f"[{label}] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    return launches
+
+
+def api_phase(torch, np, cuda_lib, fb, attn, models, dev):
+    """The /terrain API, single-threaded, portable noise."""
     from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
     from terrain_diffusion_tpu_torch.serving import api
 
     pipe = WorldPipeline(seed=SEED, noise_mode="portable", device=dev).set_models(*models)
     t0 = time.perf_counter()
     pipe.bind()  # set-up (synthetic-map quantile tables), timed apart from requests
-    print(f"[serve] bind {(time.perf_counter() - t0) * 1000:.1f} ms", flush=True)
+    print(f"[api] bind {(time.perf_counter() - t0) * 1000:.1f} ms", flush=True)
     api.configure(pipeline=pipe)
-    httpd = api.app.make_server("127.0.0.1", 0, quiet=True)
-    port = httpd.server_address[1]
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    server.start()
-    reqs = []
-    try:
-        status, _, body = http_get(port, "/health")
+    bodies = []
+    with Server(api.app) as srv:
+        status, _, body = http_get(srv.port, "/health")
         check(status == 200 and json.loads(body) == {"status": "ok"}, "/health")
         torch.cuda.reset_peak_memory_stats()
-        fb.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
+        before = stage_calls(pipe)
         for path in ("/terrain?i1=0&j1=0&i2=256&j2=256&scale=1",
                      "/terrain?i1=0&j1=0&i2=256&j2=256&scale=1",
                      "/terrain?i1=128&j1=192&i2=384&j2=448&scale=1"):
-            dec_before = pipe.stage_timings.get("decoder", [0, 0.0])[0]
+            dec_before = stage_calls(pipe).get("decoder", 0)
             t0 = time.perf_counter()
-            status, headers, body = http_get(port, path)
+            status, headers, body = http_get(srv.port, path)
             wall = time.perf_counter() - t0
-            dec_calls = pipe.stage_timings.get("decoder", [0, 0.0])[0] - dec_before
-            reqs.append((path, wall, dec_calls, body))
+            bodies.append(body)
             h, w = int(headers["X-Height"]), int(headers["X-Width"])
             check(status == 200 and (h, w) == (256, 256), f"{path}: {status} {h}x{w}")
             check(len(body) == h * w * 2 + h * w * 4 * 4, f"{path}: payload {len(body)}")
@@ -216,24 +368,136 @@ def serving_phase(torch, np, fb, models, dev):
             check(bool(np.isfinite(climate).all()), f"{path}: non-finite climate")
             check(elev.min() > -32768 and elev.max() < 32767 and elev.std() > 0,
                   f"{path}: elevation saturated or constant")
-            print(f"[serve] GET {path}: {wall * 1000:.1f} ms, decoder batches "
-                  f"{dec_calls}, elev [{elev.min()}, {elev.max()}] m", flush=True)
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        server.join(timeout=60)
-    check(reqs[0][3] == reqs[1][3], "repeated /terrain request is not byte-identical")
-    n_dec = sum(r[2] for r in reqs)
-    launches = {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches}
-    print(f"[serve] decoder forwards {n_dec}, launches {launches}", flush=True)
-    check(n_dec > 0, "no decoder forward ran")
-    check(launches == {"fused_block": 26 * n_dec, "conv3x3": 2 * n_dec},
-          f"launch counts {launches} != 26 / 2 per decoder forward ({n_dec})")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for stage, v in pipe.timing_summary().items():
-        print(f"[serve] stage {stage:16s} calls={v['calls']:4d} total={v['total_s'] * 1000:.1f} ms "
-              f"mean={v['mean_ms']:.2f} ms", flush=True)
-    print(f"[serve] peak device memory {peak:.2f} GiB", flush=True)
+            print(f"[api] GET {path}: {wall * 1000:.1f} ms, decoder batches "
+                  f"{stage_calls(pipe).get('decoder', 0) - dec_before}, "
+                  f"elev [{elev.min()}, {elev.max()}] m", flush=True)
+        launches = check_launches(torch, cuda_lib, fb, attn, pipe, before, "api")
+    check(bodies[0] == bodies[1], "repeated /terrain request is not byte-identical")
+    pipe.close()
+    return launches
+
+
+def start_minecraft_server(mc, world_dir: str, port: int) -> threading.Thread:
+    """``minecraft_api.main`` as a user runs it, in a thread that serves
+    until ``mc.app.server.shutdown()``; returns the thread once /health
+    answers."""
+    errors = []
+
+    def serve():
+        try:
+            mc.main([world_dir, "--device", "cuda", "--threaded", "--host", "127.0.0.1",
+                     "--port", str(port), "--seed", str(SEED),
+                     "--batch-size", "1,2,4,8,16,32,64", "--log-mode", "info"])
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    deadline = time.perf_counter() + 300
+    while True:
+        if errors:
+            fail(f"minecraft_api.main failed: {errors[0]!r}")
+        try:
+            status, _, body = http_get(port, "/health")
+            break
+        except OSError:
+            check(time.perf_counter() < deadline, "the Minecraft server did not start")
+            time.sleep(0.2)
+    check(status == 200 and json.loads(body) == {"status": "ok"}, "/health")
+    return thread
+
+
+def minecraft_phase(torch, np, cuda_lib, fb, attn, models, dev):
+    """The Minecraft server through its entry point: the models saved as a
+    world directory, loaded by ``minecraft_api.main`` with --threaded
+    (coalesced serving), WorldPipeline at its defaults (threefry, T=2)."""
+    import socket
+    import tempfile
+
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+    from terrain_diffusion_tpu_torch.serving import minecraft_api as mc
+    from terrain_diffusion_tpu_torch.serving.coalesce import CoalescedPipeline
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_dir:
+        t0 = time.perf_counter()
+        WorldPipeline(device=dev).set_models(*models).save_pretrained(world_dir)
+        print(f"[minecraft] world saved in {(time.perf_counter() - t0) * 1000:.1f} ms",
+              flush=True)
+        t0 = time.perf_counter()
+        server = start_minecraft_server(mc, world_dir, port)
+        print(f"[minecraft] server up (weights loaded, bound) in "
+              f"{(time.perf_counter() - t0) * 1000:.1f} ms", flush=True)
+    world = mc._PIPELINE
+    check(isinstance(world, CoalescedPipeline), "threaded Minecraft serving is not coalesced")
+    check(world.noise_mode == "threefry" and world.T == 2 and world.device.type == "cuda",
+          "the world does not run at the defaults on the card")
+    biome_ids = set(mc.BIOME_ID.values()) | {41, 44, 46, 48}  # + the ocean ids
+
+    def get_tile(path):
+        t0 = time.perf_counter()
+        status, headers, body = http_get(port, path)
+        wall = time.perf_counter() - t0
+        h, w = int(headers.get("X-Height", -1)), int(headers.get("X-Width", -1))
+        check(status == 200 and (h, w) == (256, 256), f"{path}: {status} {h}x{w}")
+        check(len(body) == 2 * 2 * h * w, f"{path}: payload {len(body)}")
+        elev = np.frombuffer(body[:2 * h * w], dtype="<i2")
+        biome = np.frombuffer(body[2 * h * w:], dtype="<i2")
+        check(elev.min() > -32768 and elev.max() < 32767 and elev.std() > 0,
+              f"{path}: elevation saturated or constant")
+        check(set(np.unique(biome).tolist()) <= biome_ids, f"{path}: unknown biome ids")
+        return wall, body, elev, biome
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    before = stage_calls(world)
+    bodies = []
+    for path in ("/terrain?i1=0&j1=0&i2=256&j2=256", "/terrain?i1=0&j1=0&i2=256&j2=256",
+                 "/terrain?i1=1024&j1=-1024&i2=1280&j2=-768&scale=4",
+                 "/90?i1=256&j1=0&i2=512&j2=256"):
+        wall, body, elev, biome = get_tile(path)
+        bodies.append(body)
+        print(f"[minecraft] GET {path}: {wall * 1000:.1f} ms, elev [{elev.min()}, "
+              f"{elev.max()}] m, {len(np.unique(biome))} biomes", flush=True)
+    check(bodies[0] == bodies[1], "repeated Minecraft /terrain request is not byte-identical")
+
+    paths = [f"/terrain?i1={i}&j1={j}&i2={i + 256}&j2={j + 256}"
+             for i in (2048, 2304) for j in (-512, -256)]
+    results = [None] * 4
+
+    def client(k):
+        results[k] = get_tile(paths[k])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(all(r is not None for r in results), "a concurrent request failed")
+    print(f"[minecraft] 4 concurrent adjacent tiles: {wall * 1000:.1f} ms "
+          f"(each {', '.join(f'{r[0] * 1000:.1f}' for r in results)} ms)", flush=True)
+    launches = check_launches(torch, cuda_lib, fb, attn, world, before, "minecraft")
+    # The four tiles again, one at a time and computed afresh.  Bar: the CPU
+    # parity test's (elevation within 1 m, biome ids equal on >= 99% of
+    # pixels), since one-tile requests run the stages at smaller batch buckets,
+    # where cuDNN and cuBLAS may pick kernels of another summation order.
+    world.empty_cache()
+    for k, path in enumerate(paths):
+        _, body, elev, biome = get_tile(path)
+        d_elev = int(np.abs(elev.astype(np.int32) - results[k][2]).max())
+        same_biome = float(np.mean(biome == results[k][3]))
+        print(f"[minecraft] {path} one at a time, uncached, vs concurrent: byte-identical "
+              f"{body == results[k][1]}, max|elev diff| {d_elev} m, "
+              f"biome ids equal on {same_biome:.4f}", flush=True)
+        check(d_elev <= 1 and same_biome >= 0.99,
+              f"{path}: concurrent and sequential responses differ")
+    mc.app.server.shutdown()
+    server.join(timeout=60)
+    world.close()
     return launches
 
 
@@ -249,6 +513,8 @@ def main():
         import numpy as np
 
         from terrain_diffusion_tpu_torch import use_full_f32
+        from terrain_diffusion_tpu_torch.ops import attention as attn
+        from terrain_diffusion_tpu_torch.ops import cuda_lib
         from terrain_diffusion_tpu_torch.ops import fused_block as fb
     except ImportError as e:
         fail(f"run from the root of a checkout of the repository ({e})")
@@ -256,28 +522,32 @@ def main():
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     use_full_f32()
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    path = fb.build_kernels()
-    print(f"[build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.1f} s",
+    path = cuda_lib.build_kernels()
+    print(f"[build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    for line in fb.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+    for line in cuda_lib.build_log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    rows = kernel_phase(torch, fb, dev)
-    models = build_models(torch, dev)
-    model_phase(torch, models[2], dev)
-    launches = serving_phase(torch, np, fb, models, dev)
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        print(f"[time] {name} phase {time.perf_counter() - t0:.1f} s", flush=True)
+        return result
+
+    rows = timed("kernel", lambda: kernel_phase(torch, fb, attn, dev))
+    timed("threefry", lambda: threefry_phase(torch, dev))
+    models = timed("model build", lambda: build_models(torch, dev))
+    timed("model", lambda: model_phase(torch, np, attn, models, dev))
+    timed("api", lambda: api_phase(torch, np, cuda_lib, fb, attn, models, dev))
+    launches = timed("minecraft", lambda: minecraft_phase(torch, np, cuda_lib, fb, attn,
+                                                          models, dev))
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
-    meta = {"fused_block": ("terrain_diffusion_tpu_torch/csrc/fused_block.cu",
-                            "terrain_diffusion_tpu/ops/pallas_block.py:420",
-                            "enc 512x512 64->64 b2"),
-            "conv3x3": ("terrain_diffusion_tpu_torch/csrc/conv3x3.cu",
-                        "terrain_diffusion_tpu/ops/pallas_block.py:595",
-                        "out conv 512x512 64->1 b2")}
-    for kernel, (source, replaces, case) in meta.items():
+    for kernel, (source, replaces, case) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kernel]
         main_case = next(r for r in mine if r["case"] == case)
         report.append({"name": kernel, "route": "cuda", "source": source,

@@ -12,6 +12,11 @@ Routing: a default-conv residual block whose output map has at least
 128 x 128 pixels runs its conv body through the hand-written fused block
 kernel (``ops/fused_block.py``), the JAX package's rule for its Pallas
 kernel without the TPU batch cutover; smaller maps run the plain path.
+A block built with ``attention_impl="pallas"`` (the JAX package's value
+for its Pallas kernel, set through a model's ``block_kwargs``) runs its
+attention core through the hand-written attention kernel
+(``ops/attention.py``) wherever ``attention_eligible`` holds; any other value
+runs the plain einsum.  The qkv and output 1x1 projections stay ``MPConv``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ import torch
 from torch import nn
 
 from terrain_diffusion_tpu_torch.ops import mp
+from terrain_diffusion_tpu_torch.ops.attention import (attention_eligible,
+                                                       fused_pixelnorm_attention,
+                                                       pixelnorm_attention_reference)
 from terrain_diffusion_tpu_torch.ops.fused_block import fused_block
 from terrain_diffusion_tpu_torch.ops.nhwc import conv2d_nhwc, oihw_to_hwio
 
@@ -112,7 +120,7 @@ class UNetBlock(nn.Module):
                  attn_balance: float = 0.3, clip_act=256.0,
                  conv_type: str = "default", resample_type: str = "pooling",
                  expansion_factor: int = 1, no_padding: bool = False,
-                 activation: str = "silu", **_unused):
+                 activation: str = "silu", attention_impl: str = "xla", **_unused):
         super().__init__()
         if conv_type != "default" or expansion_factor != 1 or no_padding \
                 or activation != "silu":
@@ -126,6 +134,7 @@ class UNetBlock(nn.Module):
         self.res_balance = float(res_balance)
         self.attn_balance = float(attn_balance)
         self.clip_act = clip_act
+        self.attention_impl = attention_impl
         # attention disables when out_channels < channels_per_head (no heads)
         self.num_heads = out_channels // channels_per_head if attention else 0
         kw = dict(device=device, generator=generator)
@@ -146,20 +155,14 @@ class UNetBlock(nn.Module):
         return c / torch.sqrt(torch.mean(c * c, dim=-1, keepdim=True) + 1e-8)
 
     def _attention(self, x):
-        """Pixel-norm attention in f32 (explicit einsum + softmax); qkv
-        channels are laid out (head, channel, qkv) with qkv fastest."""
-        n, h, w, c = x.shape
-        heads = self.num_heads
-        ch = c // heads
+        """Pixel-norm attention; qkv channels are laid out (head, channel,
+        qkv) with qkv fastest."""
         y = self.attn_qkv(x)
-        y = y.reshape(n, h * w, heads, ch, 3).permute(0, 2, 3, 4, 1)
-        y = mp.normalize(y, dim=2)
-        q, k, v = (y[:, :, :, i].float() for i in range(3))  # (N, heads, ch, HW)
-        logits = torch.einsum("nhcq,nhck->nhqk", q, k / math.sqrt(ch))
-        wts = torch.softmax(logits, dim=3)
-        out = torch.einsum("nhqk,nhck->nhcq", wts, v)
-        out = out.permute(0, 3, 1, 2).reshape(n, h, w, c).to(x.dtype)
-        return self.attn_proj(out)
+        if self.attention_impl == "pallas" and attention_eligible(y, self.num_heads):
+            out = fused_pixelnorm_attention(y.contiguous(), self.num_heads)
+        else:
+            out = pixelnorm_attention_reference(y, self.num_heads)
+        return self.attn_proj(out.to(x.dtype))
 
     def _tail(self, x):
         if self.num_heads > 0:

@@ -1,0 +1,81 @@
+"""The U-Net's pixel-norm attention core: its hand-written CUDA kernel, the
+wrapper and the plain PyTorch version.
+
+Counterpart of ``terrain_diffusion_tpu.ops.pallas_attention``:
+
+- ``fused_pixelnorm_attention(qkv, num_heads)`` launches
+  ``csrc/attention.cu`` (the counterpart of the Pallas kernel
+  ``fused_pixelnorm_attention``) for a CUDA tensor, and computes
+  ``pixelnorm_attention_reference`` for a CPU tensor.  It counts its
+  launches in ``fused_pixelnorm_attention.launches``.
+- ``pixelnorm_attention_reference`` is the explicit float32 einsum + softmax
+  the U-Net block runs when the kernel is not asked for.
+- ``attention_eligible`` is the JAX package's routing rule for the kernel,
+  as it is.  It mirrors the Pallas kernel's VMEM limit, which the CUDA
+  kernel (online softmax over key chunks) does not share; an ineligible
+  shape runs the plain version on the card too, by design, as in JAX.  The
+  base model's midblock (8x8, 12 heads) is eligible at every latent bucket.
+
+qkv is (N, H, W, 3C) with channels laid out (head, channel, qkv), the qkv
+index fastest; the result is (N, H, W, C), before the output projection.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from terrain_diffusion_tpu_torch.ops.cuda_lib import (check_input, check_rc, counted,
+                                                      load, stream)
+
+
+def attention_eligible(qkv: torch.Tensor, num_heads: int) -> bool:
+    """The JAX kernel's feasibility rule: heads divide the channels, at
+    most 2048 pixels, and a (HW, HW) f32 logit working set within 64 MiB."""
+    n, h, w, c3 = qkv.shape
+    c = c3 // 3
+    if num_heads <= 0 or c % num_heads:
+        return False
+    hw = h * w
+    ch = c // num_heads
+    vmem = 3 * hw * hw * 4 + 4 * ch * hw * 4
+    return hw <= 2048 and vmem <= 64 * 1024 * 1024
+
+
+def pixelnorm_attention_reference(qkv: torch.Tensor, num_heads: int,
+                                  eps: float = 1e-4) -> torch.Tensor:
+    """Plain version: pixel-norm q, k, v over each head's channels, softmax
+    of q.k / sqrt(ch) over the keys, weighted sum of v; in float32, or in
+    float64 for a float64 input (the kernel's exact oracle in the tests)."""
+    n, h, w, c3 = qkv.shape
+    c = c3 // 3
+    ch = c // num_heads
+    y = qkv.to(torch.promote_types(qkv.dtype, torch.float32))
+    y = y.reshape(n, h * w, num_heads, ch, 3).permute(0, 2, 3, 4, 1)  # (N, heads, ch, 3, HW)
+    norm = torch.sqrt(torch.sum(y * y, dim=2, keepdim=True))
+    y = y / (eps + norm * math.sqrt(1.0 / ch))  # mp.normalize over ch
+    q, k, v = (y[:, :, :, i] for i in range(3))
+    logits = torch.einsum("nhcq,nhck->nhqk", q, k / math.sqrt(ch))
+    wts = torch.softmax(logits, dim=3)
+    out = torch.einsum("nhqk,nhck->nhcq", wts, v)
+    return out.permute(0, 3, 1, 2).reshape(n, h, w, c).to(qkv.dtype)
+
+
+@counted
+def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
+                              eps: float = 1e-4) -> torch.Tensor:
+    """(N, H, W, 3C) float32 qkv -> (N, H, W, C) attention output."""
+    if qkv.device.type == "cpu":
+        return pixelnorm_attention_reference(qkv, num_heads, eps)
+    check_input("qkv", qkv, qkv.device, 4)
+    n, h, w, c3 = qkv.shape
+    if c3 % 3 or num_heads <= 0 or (c3 // 3) % num_heads:
+        raise ValueError(f"qkv shape {tuple(qkv.shape)} does not split into "
+                         f"3 x {num_heads} heads")
+    c = c3 // 3
+    out = torch.empty((n, h, w, c), device=qkv.device, dtype=torch.float32)
+    check_rc(load().tdt_pixelnorm_attention(
+        qkv.data_ptr(), out.data_ptr(), n, h * w, num_heads, c // num_heads,
+        float(eps), stream(qkv.device)), "fused_pixelnorm_attention")
+    fused_pixelnorm_attention.launches += 1
+    return out

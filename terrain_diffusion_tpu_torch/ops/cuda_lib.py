@@ -1,0 +1,150 @@
+"""Build, load and launch helpers shared by the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled with nvcc (one process per source,
+run in parallel) and linked into one shared library with a plain C
+interface, at first use, into ``_build/`` beside this package (named by a
+hash of the sources, headers and flags), and loaded with ctypes.
+Nothing here runs at import: the CPU tests import every module, and the
+CPU has no nvcc.
+
+Each kernel wrapper is registered with ``counted``: it gets a plain integer
+``launches`` attribute that the wrapper raises by one where it launches its
+kernel, and ``reset_launch_counts`` zeroes all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+_SOURCES = ("conv3x3.cu", "fused_block.cu", "attention.cu")
+_HEADERS = ("conv3x3.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argument types (every entry point returns a cudaError_t)
+_SIGNATURES = {
+    "tdt_conv3x3": [P, P, P, I, I, I, I, I, P],
+    "tdt_block_prologue": [P, P, F, F, I, P, I, P, I, I, I, I, I, P],
+    "tdt_block_conv0": [P, P, P, P, I, I, I, I, I, P],
+    "tdt_block_conv1": [P, P, P, P, I, I, I, I, I, F, F, F, I, F, P],
+    "tdt_pixelnorm_attention": [P, P, I, I, I, I, F, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""  # nvcc's output (ptxas register / shared-memory report)
+_COUNTED = []
+
+
+def counted(fn):
+    """Register a kernel wrapper: ``fn.launches`` counts its launches."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def reset_launch_counts():
+    for fn in _COUNTED:
+        fn.launches = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def library_path() -> str:
+    """Path of the kernel library for the current sources."""
+    h = hashlib.sha1()
+    for name in _HEADERS + _SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libtdt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build_kernels() -> str:
+    """Compile the kernel library if it is not built yet; returns its path.
+    Each source compiles in its own nvcc process, all started together, and
+    the objects link into one library.  Raises RuntimeError with nvcc's
+    output when the build fails."""
+    global build_log
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(tmpdir, f"{s}.o") for s in _SOURCES]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                                   os.path.join(CSRC_DIR, src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        logs = [f"== {src}\n{proc.communicate()[0]}" for src, proc in zip(_SOURCES, procs)]
+        build_log = "".join(logs)
+        failed = [src for src, proc in zip(_SOURCES, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
+        os.replace(tmp, path)  # atomic: processes building at once agree on one file
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return path
+
+
+def load():
+    """The loaded kernel library (built first if needed)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_kernels())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check_rc(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def check_input(name: str, t: torch.Tensor, device, ndim: int):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-d, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -5,9 +5,11 @@ Counterpart of ``terrain_diffusion_tpu.pipeline.world`` (serving path):
 - coarse stage: 64-px tiles / stride 48, 20-step DPM-Solver++ over the
   coarse U-Net, conditioned on the synthetic map mixed with deterministic
   noise via TrigFlow cos/sin at per-channel SNR;
-- latent stage: 64-px latent tiles / stride 32, T=2 TrigFlow consistency
-  steps (init + one intermediate step), each tile conditioned on a 58-dim
-  vector built from its 4x4 coarse context window;
+- latent stage: 64-px latent tiles / stride 32, TrigFlow consistency steps
+  (init + one intermediate step; T=2 blends the init across tiles before
+  the step, T=1 chains both inside one window function; onestep_latent
+  drops the step), each tile conditioned on a 58-dim vector built from its
+  4x4 coarse context window;
 - decoder stage: 512-px tiles / stride 384, one consistency step on the
   x8-nearest-upsampled latents; its residual blocks and in/out convs run
   through the hand-written CUDA kernels on the card;
@@ -16,9 +18,11 @@ Counterpart of ``terrain_diffusion_tpu.pipeline.world`` (serving path):
   climate.
 
 Every stage evaluates a whole padded tile batch as one tensor with a real
-batch dimension.  Stochastic inputs come from the portable PCG64 noise
-field, keyed on (seed, stage, tile), so any tile is identical regardless of
-batch composition or evaluation order.
+batch dimension.  Stochastic inputs come from a tiled noise field keyed on
+(seed + stage offset, tile): the threefry field (the default), generated on
+the pipeline's device one batch per call, or the portable PCG64 host field.
+Either way any tile is identical regardless of batch composition or
+evaluation order.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from terrain_diffusion_tpu_torch.ops.image import (avg_pool, grid_sample_bilinea
                                                    max_pool, min_pool, signed_square,
                                                    upsample_nearest)
 from terrain_diffusion_tpu_torch.ops.laplacian import laplacian_decode, laplacian_denoise
-from terrain_diffusion_tpu_torch.ops.noise_field import gaussian_noise_patch
+from terrain_diffusion_tpu_torch.ops.noise_field import (gaussian_noise_patch,
+                                                        threefry_noise_batch)
 from terrain_diffusion_tpu_torch.ops.rng_portable import next_seed
 from terrain_diffusion_tpu_torch.ops.windows import linear_weight_window
 from terrain_diffusion_tpu_torch.pipeline.postprocessing import local_baseline_temperature
@@ -90,11 +95,8 @@ class WorldPipeline:
                  device="cpu", **deprecated_kwargs):
         if T not in (1, 2):
             raise ValueError(f"T must be 1 or 2, got {T}")
-        if T == 1 or onestep_latent:
-            raise NotImplementedError("T=1 / onestep_latent are not ported yet")
-        if noise_mode != "portable":
-            raise NotImplementedError(
-                f"noise_mode={noise_mode!r} is not ported; use noise_mode='portable'")
+        if noise_mode not in ("threefry", "portable"):
+            raise ValueError(f"unknown noise mode {noise_mode!r}")
         if dtype not in (None, "fp32"):
             raise NotImplementedError(f"dtype={dtype!r}: the port serves float32 only")
         if caching_strategy != "direct":
@@ -149,6 +151,23 @@ class WorldPipeline:
                                  for folder in (cls.COARSE_MODEL_FOLDER,
                                                 cls.BASE_MODEL_FOLDER,
                                                 cls.DECODER_MODEL_FOLDER)))
+
+    def get_config(self) -> dict:
+        """The world's config.json (the JAX package's keys)."""
+        return {"_class_name": "WorldPipeline", "native_resolution": self.native_resolution,
+                "T": self.T, **self.kwargs, "onestep_latent": self.onestep_latent,
+                "decoder_tile_size": self.decoder_tile_size,
+                "decoder_tile_stride": self.decoder_tile_stride}
+
+    def save_pretrained(self, save_directory: str):
+        """Write the world directory ``from_pretrained`` reads."""
+        os.makedirs(save_directory, exist_ok=True)
+        with open(os.path.join(save_directory, self.CONFIG_NAME), "w") as f:
+            json.dump(self.get_config(), f, indent=2)
+        for folder, model in ((self.COARSE_MODEL_FOLDER, self.coarse_model),
+                              (self.BASE_MODEL_FOLDER, self.base_model),
+                              (self.DECODER_MODEL_FOLDER, self.decoder_model)):
+            torch_compat.save_model(model, os.path.join(save_directory, folder))
 
     def set_models(self, coarse, base, decoder):
         """Attach the three stage models (``EDMUnet2D`` modules)."""
@@ -222,8 +241,16 @@ class WorldPipeline:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
-    def _noise(self, seed, y0, x0, h, w, channels, tile):
-        return gaussian_noise_patch(seed, y0, x0, h, w, channels, tile, tile)
+    def _noise(self, seed, y0s, x0s, h, w, channels, tile) -> torch.Tensor:
+        """(B, C, h, w) noise crops at corners (y0s[b], x0s[b]) on the
+        pipeline's device: threefry generates the whole batch there in one
+        call; the portable field is drawn on the host and uploaded."""
+        if self.noise_mode == "threefry":
+            return threefry_noise_batch(seed, y0s, x0s, h, w, channels, tile, tile,
+                                        self.device)
+        return self._tensor(np.stack([
+            gaussian_noise_patch(seed, int(y0), int(x0), h, w, channels, tile, tile)
+            for y0, x0 in zip(y0s, x0s)]))
 
     # ==================================================================
     # Coarse stage
@@ -251,18 +278,16 @@ class WorldPipeline:
 
         def f(ctxs):
             seed = self.seed
-            conds, cns, sns = [], [], []
-            for _, i, j in ctxs:
-                i1 = (int(i) * (STRIDE // pool)) * pool
-                j1 = (int(j) * (STRIDE // pool)) * pool
-                cond = self.synthetic_map_factory(i1, j1, i1 + TILE, j1 + TILE)
-                conds.append((cond - cond_means[:, None, None]) / cond_stds[:, None, None])
-                cns.append(self._noise(seed, i1, j1, TILE, TILE, 5, TILE))
-                sns.append(self._noise(seed + 1, i1, j1, TILE, TILE, 6, TILE))
+            i1s = [(int(i) * (STRIDE // pool)) * pool for i in ctxs[:, 1]]
+            j1s = [(int(j) * (STRIDE // pool)) * pool for j in ctxs[:, 2]]
+            conds = [(self.synthetic_map_factory(i1, j1, i1 + TILE, j1 + TILE)
+                      - cond_means[:, None, None]) / cond_stds[:, None, None]
+                     for i1, j1 in zip(i1s, j1s)]
             B = len(ctxs)
             cond = self._tensor(np.stack(conds))
-            cond_img = torch.cos(tc) * cond + torch.sin(tc) * self._tensor(np.stack(cns))
-            x = self._tensor(np.stack(sns)) * sigmas0
+            cond_noise = self._noise(seed, i1s, j1s, TILE, TILE, 5, TILE)
+            cond_img = torch.cos(tc) * cond + torch.sin(tc) * cond_noise
+            x = self._noise(seed + 1, i1s, j1s, TILE, TILE, 6, TILE) * sigmas0
             cond_scalars = [torch.full((B,), float(v), device=self.device)
                             for v in cond_scalar_vals]
 
@@ -320,9 +345,8 @@ class WorldPipeline:
         def f(ctxs, *regions):
             prevs, coarses = regions if with_prev else (None, regions[0])
             B = len(ctxs)
-            z = self._tensor(np.stack([
-                self._noise(self.seed + seed_offset, int(c[1]) * STRIDE,
-                            int(c[2]) * STRIDE, TILE, TILE, 5, TILE) for c in ctxs]))
+            z = self._noise(self.seed + seed_offset, ctxs[:, 1] * STRIDE,
+                            ctxs[:, 2] * STRIDE, TILE, TILE, 5, TILE)
             prev = (prevs[:, :-1] / prevs[:, -1:] * SD if with_prev
                     else torch.zeros((B, 5, TILE, TILE), device=self.device))
             x_t = torch.cos(t) * prev + torch.sin(t) * (z * SD)
@@ -339,19 +363,33 @@ class WorldPipeline:
         TILE, STRIDE = 64, 32
         sigmas0 = float(compute_sigmas(SCHED, 20)[0])
         t_init = float(np.arctan(sigmas0 / SD))
-        t_inter = [float(np.arctan(0.35 / 0.5))]
+        t_inter = [] if self.onestep_latent else [float(np.arctan(0.35 / 0.5))]
         out_win = TensorWindow((6, TILE, TILE), (6, STRIDE, STRIDE))
         coarse_win = TensorWindow((7, 4, 4), (7, 1, 1), offset=(0, -1, -1))
         kw = dict(batch_buckets=self._batch_sizes, tile_store=self.tile_store,
                   device=self.device)
-        tensor = InfiniteTensor(
-            self._latent_fn(t_init, 5819, with_prev=False), out_win,
-            args=(self.coarse,), args_windows=(coarse_win,),
-            tensor_id="init_latent_map", **kw)
-        for i, t in enumerate(t_inter):
+        init_f = self._latent_fn(t_init, 5819, with_prev=False)
+        step_fs = [self._latent_fn(t, 5820 + i, with_prev=True)
+                   for i, t in enumerate(t_inter)]
+        if self.T == 1:
+            # init and steps chained inside one window fn: the intermediate
+            # latents of a tile are never blended with its neighbours'
+            def f_t1(ctxs, coarses):
+                out = init_f(ctxs, coarses)
+                for step_f in step_fs:
+                    out = step_f(ctxs, out, coarses)
+                return out
+
+            return InfiniteTensor(f_t1, out_win, args=(self.coarse,),
+                                  args_windows=(coarse_win,),
+                                  tensor_id="latent_map_T1", **kw)
+        tensor = InfiniteTensor(init_f, out_win, args=(self.coarse,),
+                                args_windows=(coarse_win,),
+                                tensor_id="init_latent_map", **kw)
+        for i, step_f in enumerate(step_fs):
             tensor = InfiniteTensor(
-                self._latent_fn(t, 5820 + i, with_prev=True), out_win,
-                args=(tensor, self.coarse), args_windows=(out_win, coarse_win),
+                step_f, out_win, args=(tensor, self.coarse),
+                args_windows=(out_win, coarse_win),
                 tensor_id=f"step_latent_map_{i}", **kw)
         return tensor
 
@@ -367,16 +405,20 @@ class WorldPipeline:
         wwin = self._tensor(linear_weight_window(TILE))
         model = self.decoder_model
 
+        # The portable field reuses the latent stage's offsets 5819 + step, as
+        # the reference does: the decoder tile index hr // 512 equals the
+        # latent tile index lat // 64, so the two streams collide.  Threefry
+        # draws from a separate offset family, as the JAX package does.
+        dec_off = 15819 if self.noise_mode == "threefry" else 5819
+
         def f(ctxs, latents_regions):
             B = len(ctxs)
             lat = (latents_regions[:, :-1] / latents_regions[:, -1:])[:, :4]
             up = upsample_nearest(lat, lc)  # (B, 4, TILE, TILE)
             sample = torch.zeros((B, 1, TILE, TILE), device=self.device)
             for step, t_val in enumerate(t_list):
-                # the reference reuses the latent stage's seed offsets here
-                z = self._tensor(np.stack([
-                    self._noise(self.seed + 5819 + step, int(c[1]) * STRIDE,
-                                int(c[2]) * STRIDE, TILE, TILE, 1, TILE) for c in ctxs]))
+                z = self._noise(self.seed + dec_off + step, ctxs[:, 1] * STRIDE,
+                                ctxs[:, 2] * STRIDE, TILE, TILE, 1, TILE)
                 t = torch.tensor(t_val, dtype=torch.float32, device=self.device)
                 x_t = torch.cos(t) * sample + torch.sin(t) * (z * SD)
                 x_in = torch.cat([x_t / SD, up], dim=1).permute(0, 2, 3, 1).contiguous()
@@ -478,17 +520,52 @@ class WorldPipeline:
 
         pack_wire=True packs the serving wire formats on the device before the
         fetch: elevation floor + clip to int16, climate to float16."""
-        scale = self.latent_compression
         with torch.no_grad():
             self._timed("prefetch", lambda: self.prefetch([(i1, j1, i2, j2)], with_climate))
-            elev = self._timed("compose_elev", lambda: self._compute_elev(
-                i1, j1, i2, j2, scale))
-            climate = (self._timed("compose_climate", lambda: self._compute_climate(
-                i1, j1, i2, j2, elev, scale)) if with_climate else None)
-            if pack_wire:
-                elev = torch.clamp(torch.floor(elev), -32768, 32767).to(torch.int16)
-                climate = climate.half() if climate is not None else None
-            out = self._timed("fetch", lambda: {
-                "elev": elev.cpu().numpy(),
-                "climate": climate.cpu().numpy() if climate is not None else None})
-        return out
+            return self._compose(i1, j1, i2, j2, with_climate, pack_wire)
+
+    def get_many(self, queries, with_climate: bool = True,
+                 pack_wire: bool = False) -> list:
+        """Batched get(): one generation pass over all `queries` ((i1, j1,
+        i2, j2) boxes), so their missing windows share stage batches, then
+        each query composed as get() composes it."""
+        with torch.no_grad():
+            self._timed("prefetch", lambda: self.prefetch(queries, with_climate))
+            return [self._compose(*q, with_climate, pack_wire) for q in queries]
+
+    def _compose(self, i1, j1, i2, j2, with_climate: bool, pack_wire: bool) -> dict:
+        scale = self.latent_compression
+        elev = self._timed("compose_elev", lambda: self._compute_elev(
+            i1, j1, i2, j2, scale))
+        climate = (self._timed("compose_climate", lambda: self._compute_climate(
+            i1, j1, i2, j2, elev, scale)) if with_climate else None)
+        if pack_wire:
+            elev = torch.clamp(torch.floor(elev), -32768, 32767).to(torch.int16)
+            climate = climate.half() if climate is not None else None
+        return self._timed("fetch", lambda: {
+            "elev": elev.cpu().numpy(),
+            "climate": climate.cpu().numpy() if climate is not None else None})
+
+    def warmup(self, tile: int | None = None, with_climate: bool = True) -> dict:
+        """Serve three `tile`-sized queries (a cold tile, its neighbour and
+        an odd alignment) before the first client, so the first request does
+        not pay the kernel build, CUDA context and allocator set-up.  The
+        tiles are real world data and stay cached."""
+        t = int(tile or self.decoder_tile_size)
+        t0 = time.perf_counter()
+        self.get(0, 0, t, t, with_climate=with_climate)
+        self.get(0, t, t, 2 * t, with_climate=with_climate)
+        off = t // 2 + 1
+        self.get(off, 2 * t + off, off + t, 3 * t + off, with_climate=with_climate)
+        return {"warmup_s": round(time.perf_counter() - t0, 2)}
+
+    def empty_cache(self):
+        """Drop every cached window output; the next query recomputes."""
+        if self.tile_store is not None:
+            self.tile_store.clear()
+
+    def close(self):
+        """Drop the tile store and the stage tensors (the port keeps no
+        files or processes to release)."""
+        self.tile_store = None
+        self.coarse = self.latents = self.residual = None

@@ -53,3 +53,8 @@ class MemoryTileStore:
                 while self._bytes > self.cache_size_bytes and len(self._data) > 1:
                     _, old = self._data.popitem(last=False)
                     self._bytes -= self._nbytes(old)
+
+    def clear(self):
+        with self._lock:
+            self._data.clear()
+            self._bytes = 0

@@ -8,22 +8,23 @@
   (H, W, 4) climate [temp, t_season, precip, p_cv]; X-Height/X-Width headers.
 
 ``scale > 1`` fetches the padded native region and upsamples bilinearly.
+``--threaded`` accepts concurrent clients and coalesces their tile requests
+into shared stage batches (``serving/coalesce.py``).
 
 Run:
-    python -m terrain_diffusion_tpu_torch.serving.api <model_path> \\
-        --kwarg noise_mode=portable --device cuda
+    python -m terrain_diffusion_tpu_torch.serving.api <model_path> --device cuda
 """
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import re
 from typing import Optional
 
 import numpy as np
 import torch
 
+from terrain_diffusion_tpu_torch.common.cli_helpers import (parse_batch_sizes,
+                                                           parse_cache_size, parse_kwargs)
 from terrain_diffusion_tpu_torch.serving.httpd import App, Response, jsonify
 
 app = App("terrain-api")
@@ -32,7 +33,8 @@ _STATE = {"pipeline": None, "config": {}}
 
 def configure(**config):
     """Set the pipeline config (CLI and tests); ``pipeline=`` injects a
-    ready WorldPipeline (bound on first use if it is not bound yet)."""
+    ready WorldPipeline (bound on first use if it is not bound yet);
+    ``coalesce=True`` wraps it in a CoalescedPipeline for threaded serving."""
     _STATE["pipeline"] = None
     _STATE["config"] = config
 
@@ -53,6 +55,10 @@ def _get_pipeline():
             **cfg.get("kwargs", {}))
     if pipe.tile_store is None:
         pipe.bind()
+    if cfg.get("coalesce"):
+        from terrain_diffusion_tpu_torch.serving.coalesce import CoalescedPipeline
+
+        pipe = CoalescedPipeline(pipe)
     print(f"World seed: {pipe.seed}")
     _STATE["pipeline"] = pipe
     return pipe
@@ -98,15 +104,23 @@ def _bilinear_up(arr: np.ndarray, scale: int) -> np.ndarray:
 
 def get_terrain(world, i1: int, j1: int, i2: int, j2: int, scale: int,
                 seed: int | None = None) -> dict:
-    """Terrain at arbitrary scale (target coords); scale>1 supersamples."""
-    if seed is not None and world.change_seed(seed):
-        print(f"World seed changed to: {world.seed}")
+    """Terrain at arbitrary scale (target coords); scale>1 supersamples.
+
+    On a coalesced pipeline `seed` rides inside the terrain job, so the
+    request is atomic under concurrent seed changes; a plain pipeline
+    changes its seed first (single-threaded serving, no race)."""
+    kw = {}
+    if seed is not None:
+        if hasattr(world, "_coalescer"):
+            kw["seed"] = seed
+        elif world.change_seed(seed):
+            print(f"World seed changed to: {world.seed}")
     if scale == 1:
-        out = world.get(i1, j1, i2, j2, with_climate=True, pack_wire=True)
+        out = world.get(i1, j1, i2, j2, with_climate=True, pack_wire=True, **kw)
         return {"elev": out["elev"], "climate": out.get("climate")}
     i1n, j1n = i1 // scale, j1 // scale
     i2n, j2n = -(-i2 // scale), -(-j2 // scale)
-    out_native = world.get(i1n - 1, j1n - 1, i2n + 1, j2n + 1, with_climate=True)
+    out_native = world.get(i1n - 1, j1n - 1, i2n + 1, j2n + 1, with_climate=True, **kw)
     out_h, out_w = i2 - i1, j2 - j1
     ci, cj = scale + i1 - i1n * scale, scale + j1 - j1n * scale
     elev = _bilinear_up(out_native["elev"], scale)[ci:ci + out_h, cj:cj + out_w]
@@ -148,31 +162,6 @@ def terrain(req):
         return jsonify({"error": str(e)}, 400)
 
 
-def parse_cache_size(value: str | None) -> int | None:
-    """'100M' / '1G' / '500K' -> bytes."""
-    if value is None:
-        return None
-    match = re.fullmatch(r"(\d+(?:\.\d+)?)\s*([KMGT]?)B?", value.strip().upper())
-    if not match:
-        raise ValueError(f"Invalid size format: {value}. Use e.g. 100M, 1G, 500K")
-    mult = {"": 1, "K": 1024, "M": 1024 ** 2, "G": 1024 ** 3, "T": 1024 ** 4}
-    return int(float(match.group(1)) * mult[match.group(2)])
-
-
-def parse_kwargs(items) -> dict:
-    """('k=v', ...) -> dict with JSON-typed values."""
-    result = {}
-    for item in items:
-        if "=" not in item:
-            raise ValueError(f"Expected key=value format, got: {item}")
-        key, value = item.split("=", 1)
-        try:
-            result[key] = json.loads(value)
-        except json.JSONDecodeError:
-            result[key] = value
-    return result
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Terrain API server (PyTorch port).")
     ap.add_argument("model_path")
@@ -183,15 +172,25 @@ def main(argv=None):
     ap.add_argument("--log-mode", choices=["info", "verbose"], default="verbose")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=int(os.getenv("PORT", "8000")))
+    ap.add_argument("--threaded", action=argparse.BooleanOptionalAction, default=False,
+                    help="accept concurrent clients; their tile requests coalesce "
+                         "into shared stage batches")
+    ap.add_argument("--warmup", action=argparse.BooleanOptionalAction, default=False,
+                    help="serve three warm-up tiles before accepting clients")
     ap.add_argument("--kwarg", dest="extra_kwargs", action="append", default=[],
                     help="additional key=value pipeline kwargs")
     args = ap.parse_args(argv)
     configure(model_path=args.model_path, device=args.device,
               cache_limit=parse_cache_size(args.cache_size), seed=args.seed,
-              latents_batch_size=[int(x) for x in args.batch_size.split(",")],
-              log_mode=args.log_mode, kwargs=parse_kwargs(args.extra_kwargs))
-    _get_pipeline()
-    app.run(host=args.host, port=args.port)
+              latents_batch_size=parse_batch_sizes(args.batch_size),
+              log_mode=args.log_mode, kwargs=parse_kwargs(args.extra_kwargs),
+              coalesce=args.threaded)
+    pipe = _get_pipeline()
+    if args.warmup:
+        print("Warming up ...")
+        print(f"Warmup done: {pipe.warmup()}")
+    app.run(host=args.host, port=args.port, threaded=args.threaded,
+            serialize=not args.threaded)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,15 @@
 Counterpart of ``terrain_diffusion_tpu.serving.httpd``: routing, request
 arguments and responses on ``wsgiref``, so the serving layer needs no web
 dependency.  Single-threaded by default: the pipeline's tile store is then
-never accessed concurrently.
+never accessed concurrently.  ``threaded=True`` accepts concurrent clients,
+with handlers serialized by a lock or, with ``serialize=False``, run
+concurrently in front of a ``serving.coalesce.CoalescedPipeline``.
 """
 from __future__ import annotations
 
 import json
+import socketserver
+import threading
 import traceback
 from typing import Callable
 from urllib.parse import parse_qs
@@ -83,6 +87,7 @@ class App:
     def __init__(self, name: str = "app"):
         self.name = name
         self._routes: dict[tuple[str, str], Callable] = {}
+        self.server = None  # the running server of run(), for shutdown()
 
     def route(self, path: str, methods=("GET",)):
         def deco(fn):
@@ -127,20 +132,52 @@ class App:
         return [resp.body]
 
     def make_server(self, host: str = "0.0.0.0", port: int = 8000,
-                    quiet: bool = False):
-        """Build (but do not start) a single-threaded WSGI server; port=0
-        binds an ephemeral port (``httpd.server_address[1]``)."""
+                    quiet: bool = False, threaded: bool = False,
+                    serialize: bool = True):
+        """Build (but do not start) the WSGI server; ``httpd.mode`` names its
+        threading mode.  threaded=False serves one request at a time.
+        threaded=True accepts concurrent clients: with serialize=True a lock
+        still runs one handler at a time (the pipeline's tile store never
+        races); serialize=False runs handlers concurrently, which is valid
+        only when they are thread-safe (a CoalescedPipeline, which merges
+        concurrent tile requests into shared stage batches).  port=0 binds
+        an ephemeral port (``httpd.server_address[1]``)."""
         handler_cls = WSGIRequestHandler
         if quiet:
             class _Quiet(WSGIRequestHandler):
                 def log_message(self, *a):
                     pass
             handler_cls = _Quiet
-        return make_server(host, port, self.wsgi, server_class=WSGIServer,
-                           handler_class=handler_cls)
+        server_cls, app_fn, mode = WSGIServer, self.wsgi, "single-threaded"
+        if threaded:
+            class _ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
+                daemon_threads = True
 
-    def run(self, host: str = "0.0.0.0", port: int = 8000, quiet: bool = False):
-        """Serve forever, one request at a time."""
-        with self.make_server(host, port, quiet=quiet) as httpd:
-            print(f"* Serving {self.name} on http://{host}:{port}")
-            httpd.serve_forever()
+            server_cls = _ThreadingWSGIServer
+            if serialize:
+                lock = threading.Lock()
+
+                def app_fn(environ, start_response):
+                    with lock:
+                        return self.wsgi(environ, start_response)
+
+                mode = "threaded (serialized pipeline)"
+            else:
+                mode = "threaded (coalesced pipeline)"
+        httpd = make_server(host, port, app_fn, server_class=server_cls,
+                            handler_class=handler_cls)
+        httpd.mode = mode
+        return httpd
+
+    def run(self, host: str = "0.0.0.0", port: int = 8000, quiet: bool = False,
+            threaded: bool = False, serialize: bool = True):
+        """Serve until ``self.server.shutdown()`` is called from another
+        thread (see make_server for the threading contract)."""
+        with self.make_server(host, port, quiet=quiet, threaded=threaded,
+                              serialize=serialize) as httpd:
+            self.server = httpd
+            print(f"* Serving {self.name} on http://{host}:{port} ({httpd.mode})")
+            try:
+                httpd.serve_forever()
+            finally:
+                self.server = None

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on
-the card.  Marked `cuda`: skipped where torch sees no CUDA device.
+"""The hand-written CUDA kernels (fused residual block, 3x3 conv, pixel-norm
+attention) against their plain PyTorch versions, on the card.  Marked `cuda`: skipped where torch sees no CUDA device.
 
 This file imports no JAX, so on a machine without it run it without the
 repository conftest:
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from terrain_diffusion_tpu_torch import use_full_f32
+from terrain_diffusion_tpu_torch.ops import attention
 from terrain_diffusion_tpu_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.cuda
@@ -85,6 +86,39 @@ def test_conv3x3_kernel(dev, n, h, w, cin, cout):
     assert _rel(got.double().cpu(), exact) < TOL
 
 
+@pytest.mark.parametrize("shape,heads", [
+    ((2, 8, 8, 192), 1), ((1, 16, 16, 384), 2),  # the JAX package's test shapes
+    ((3, 8, 8, 2304), 12),                       # the base model's midblock
+    ((1, 32, 64, 576), 3),                       # HW = 2048, the largest eligible
+    ((2, 5, 13, 96), 2),                         # HW = 65: a ragged last tile
+    ((1, 8, 8, 1200), 1),                        # ch = 400: a smaller query tile
+])
+def test_attention_kernel(dev, shape, heads):
+    g = torch.Generator().manual_seed(2)
+    qkv = _rand(g, shape, dev, 3.0)
+    before = attention.fused_pixelnorm_attention.launches
+    got = attention.fused_pixelnorm_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert attention.fused_pixelnorm_attention.launches == before + 1
+    assert got.shape == (*shape[:3], shape[3] // 3)
+    assert _rel(got, attention.pixelnorm_attention_reference(qkv, heads)) < TOL
+    # and against the same math in float64 on the CPU
+    exact = attention.pixelnorm_attention_reference(qkv.double().cpu(), heads)
+    assert _rel(got.double().cpu(), exact) < TOL
+
+
+def test_threefry_noise_on_the_card_equals_the_cpu(dev):
+    """Not a kernel: the threefry field runs as torch integer and float ops
+    on the tensor's device, and the card must draw the CPU's floats bit for
+    bit (a float32 sqrt that rounds differently once broke this)."""
+    from terrain_diffusion_tpu_torch.ops.noise_field import threefry_noise_batch
+
+    args = (2 ** 63 + 11, [-300, 40], [-1001, 7], 300, 260, 3, 128, 128)
+    got = threefry_noise_batch(*args, device=dev)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), threefry_noise_batch(*args, device="cpu"))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 8, 8, 4), device=dev)
     w = torch.zeros((3, 3, 4, 4), device=dev)
@@ -96,3 +130,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fb.conv3x3(x, torch.zeros((3, 3, 5, 4), device=dev))
     with pytest.raises(ValueError):
         fb.fused_block(x, w, w, None, torch.zeros((4, 8), device=dev), mode="enc")
+    qkv = torch.zeros((1, 8, 8, 48), device=dev)
+    with pytest.raises(TypeError):
+        attention.fused_pixelnorm_attention(qkv.double(), 2)
+    with pytest.raises(ValueError):
+        attention.fused_pixelnorm_attention(qkv, 3)  # 16 channels into 3 heads
+    with pytest.raises(ValueError):
+        attention.fused_pixelnorm_attention(qkv.permute(0, 2, 1, 3), 2)

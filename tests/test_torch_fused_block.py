@@ -18,6 +18,7 @@ from terrain_diffusion_tpu.ops import mp as jmp
 from terrain_diffusion_tpu.ops import pallas_block as pb
 
 from terrain_diffusion_tpu_torch import use_full_f32
+from terrain_diffusion_tpu_torch.ops import cuda_lib
 from terrain_diffusion_tpu_torch.ops import fused_block as fb
 
 use_full_f32()
@@ -92,7 +93,7 @@ def test_conv3x3_reference_matches_pallas(rng, cin, cout, n):
 def test_cpu_tensors_take_the_plain_version(rng):
     """A wrapper given CPU tensors computes the plain version and launches
     nothing."""
-    fb.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     x, w0, w1, c, wskip, x2 = _block_inputs(rng, 32, 16, "dec", True, 1)
     args = (_t(x), _t(w0), _t(w1), _t(c), _t(wskip), _t(x2))
     kw = dict(mode="dec", pixel_norm=False, res_balance=0.3, clip_act=256.0,
@@ -107,6 +108,7 @@ def test_cpu_tensors_take_the_plain_version(rng):
 def test_kernel_library_is_named_by_its_sources():
     """The build path hashes every source and header, so an edited kernel
     is rebuilt instead of loading a stale library."""
-    path = fb.library_path()
-    assert path.startswith(fb.BUILD_DIR) and path.endswith(".so")
-    assert path == fb.library_path()
+    path = cuda_lib.library_path()
+    assert path.startswith(cuda_lib.BUILD_DIR) and path.endswith(".so")
+    assert path == cuda_lib.library_path()
+    assert set(cuda_lib._SOURCES) == {"conv3x3.cu", "fused_block.cu", "attention.cu"}

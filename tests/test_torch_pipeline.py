@@ -54,17 +54,7 @@ def _rrmse(got, want):
 
 @pytest.fixture(scope="module")
 def pipes():
-    models = [(m, _lively(p)) for m, p in tiny_models(decoder_tile=64)]
-    port_models = []
-    for m, p in models:
-        pm = EDMUnet2D(EDMUnetConfig.from_dict(m.config.to_dict()), device="cpu",
-                       generator=torch.Generator().manual_seed(0))
-        pm.load_state_dict(params_from_jax(pm, p))
-        port_models.append(pm)
-    port = WorldPipeline(device="cpu", **KW).set_models(*port_models).bind()
-    ref = JaxWorldPipeline(block_impl="xla", **KW).set_models(*models)
-    ref.bind()
-    return port, ref
+    return _pipe_pair()
 
 
 @pytest.mark.parametrize("query", QUERIES)
@@ -124,9 +114,117 @@ def test_terrain_endpoint_matches_jax(pipes):
         assert _rrmse(climate, jclimate) < 2e-3
 
 
-def test_threefry_noise_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        WorldPipeline(seed=1, device="cpu")
+def _pipe_pair(**kw):
+    """(port, JAX) pipelines over the same lively tiny models; `kw` overrides
+    KW (noise_mode, T, onestep_latent)."""
+    models = [(m, _lively(p)) for m, p in tiny_models(decoder_tile=64)]
+    port_models = []
+    for m, p in models:
+        pm = EDMUnet2D(EDMUnetConfig.from_dict(m.config.to_dict()), device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+        pm.load_state_dict(params_from_jax(pm, p))
+        port_models.append(pm)
+    kw = {**KW, **kw}
+    port = WorldPipeline(device="cpu", **kw).set_models(*port_models).bind()
+    ref = JaxWorldPipeline(block_impl="xla", **kw).set_models(*models)
+    ref.bind()
+    return port, ref
+
+
+STAGE_RANGES = {"coarse": [(0, 7), (-3, 5), (0, 6)],
+                "latents": [(0, 6), (-8, 12), (0, 16)],
+                "residual": [(0, 2), (-24, 40), (8, 56)]}
+
+
+@pytest.fixture(scope="module")
+def threefry_pipes():
+    return _pipe_pair(noise_mode="threefry")
+
+
+def test_default_pipeline_is_threefry_t2():
+    """The JAX package's default world settings construct in the port."""
+    pipe = WorldPipeline(seed=1, device="cpu")
+    assert (pipe.noise_mode, pipe.T, pipe.onestep_latent) == ("threefry", 2, False)
+    WorldPipeline(seed=1, device="cpu", T=1)
+    WorldPipeline(seed=1, device="cpu", onestep_latent=True)
+
+
+@pytest.mark.parametrize("stage", ["coarse", "latents", "residual"])
+def test_threefry_stage_matches_jax(threefry_pipes, stage):
+    port, ref = threefry_pipes
+    with torch.no_grad():
+        got = getattr(port, stage).read(STAGE_RANGES[stage]).numpy()
+    want = np.asarray(getattr(ref, stage).read(STAGE_RANGES[stage]))
+    assert got.shape == want.shape
+    assert _rrmse(got, want) < 1e-3
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_threefry_get_matches_jax(threefry_pipes, query):
+    port, ref = threefry_pipes
+    got, want = port.get(*query), ref.get(*query)
+    assert _rrmse(got["elev"], want["elev"]) < 1e-3
+    assert _rrmse(got["climate"], want["climate"]) < 1e-3
+
+
+def test_threefry_noise_is_generated_per_batch_on_the_device(threefry_pipes, monkeypatch):
+    """Each stage batch draws its noise in one call on the pipeline's
+    device, with the JAX package's seed offsets: coarse seed and seed + 1,
+    latent init seed + 5819, decoder seed + 15819."""
+    from terrain_diffusion_tpu_torch.pipeline import world as world_mod
+
+    port, _ = threefry_pipes
+    calls = []
+    real = world_mod.threefry_noise_batch
+
+    def spy(seed, y0s, x0s, *a, **k):
+        calls.append((int(seed) - port.seed, len(y0s)))
+        return real(seed, y0s, x0s, *a, **k)
+
+    monkeypatch.setattr(world_mod, "threefry_noise_batch", spy)
+
+    def batches():
+        return {k: v[0] for k, v in port.stage_timings.items()}
+
+    before = batches()
+    port.get(40000, 40000, 40016, 40016)  # far from cached tiles: every stage runs
+    ran = {k: n - before.get(k, 0) for k, n in batches().items()}
+    assert {off for off, _ in calls} == {0, 1, 5819, 5820, 15819}
+    # one call per batch and stream: two in a coarse batch, one elsewhere
+    assert len(calls) == (2 * ran["coarse"] + ran["latent_init"] + ran["latent_step"]
+                          + ran["decoder"])
+
+
+@pytest.mark.parametrize("variant", [{"T": 1}, {"onestep_latent": True}],
+                         ids=["T1", "onestep"])
+def test_latent_variants_match_jax(variant):
+    port, ref = _pipe_pair(noise_mode="threefry", **variant)
+    with torch.no_grad():
+        got = port.latents.read(STAGE_RANGES["latents"]).numpy()
+    want = np.asarray(ref.latents.read(STAGE_RANGES["latents"]))
+    assert _rrmse(got, want) < 1e-3
+    g, w = port.get(*QUERIES[0]), ref.get(*QUERIES[0])
+    assert _rrmse(g["elev"], w["elev"]) < 1e-3
+    assert _rrmse(g["climate"], w["climate"]) < 1e-3
+    if variant.get("T") == 1:
+        assert port.latents.tensor_id == "latent_map_T1"
+    else:
+        assert "latent_step" not in port.stage_timings
+
+
+def test_get_many_is_byte_identical_to_sequential_get(threefry_pipes):
+    """get_many: one generation pass over all queries, each composed as
+    get() composes it; a fresh pipeline serving the queries one by one
+    returns the same bytes."""
+    port, _ = threefry_pipes
+    queries = [(0, 0, 24, 24), (60, 0, 84, 24), (0, 60, 24, 84), (-30, -30, -6, -6)]
+    fresh = WorldPipeline(device="cpu", **{**KW, "noise_mode": "threefry"}).set_models(
+        port.coarse_model, port.base_model, port.decoder_model).bind()
+    got = fresh.get_many(queries, pack_wire=True)
+    for q, g in zip(queries, got):
+        w = port.get(*q, pack_wire=True)
+        assert g["elev"].tobytes() == w["elev"].tobytes(), q
+        assert g["climate"].tobytes() == w["climate"].tobytes(), q
 
 
 _STANDALONE = textwrap.dedent("""
@@ -189,3 +287,24 @@ def test_from_pretrained_loads_a_saved_world(pipes, tmp_path):
     got, want = port.get(*QUERIES[0]), ref.get(*QUERIES[0])
     assert _rrmse(got["elev"], want["elev"]) < 1e-3
     assert _rrmse(got["climate"], want["climate"]) < 1e-3
+
+
+def test_save_pretrained_writes_the_world_both_packages_read(pipes, tmp_path):
+    """A world directory written by the port has the JAX package's config
+    keys and values, loads back into the port with the same weights and
+    terrain, and loads into the JAX package."""
+    pytest.importorskip("safetensors")
+    port, ref = pipes
+    port.save_pretrained(str(tmp_path))
+    with open(tmp_path / "config.json") as f:
+        assert json.load(f) == json.loads(json.dumps(ref.get_config()))
+    back = WorldPipeline.from_pretrained(str(tmp_path), **KW, device="cpu").bind()
+    for a, b in zip((port.coarse_model, port.base_model, port.decoder_model),
+                    (back.coarse_model, back.base_model, back.decoder_model)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+    got, want = back.get(*QUERIES[0]), port.get(*QUERIES[0])
+    assert np.array_equal(got["elev"], want["elev"])
+    jax_world = JaxWorldPipeline.from_pretrained(str(tmp_path), block_impl="xla", **KW)
+    jax_world.bind()
+    assert _rrmse(jax_world.get(*QUERIES[0])["elev"], want["elev"]) < 1e-3

@@ -194,3 +194,98 @@ def test_local_baseline_temperature(rng):
     want = jpost.local_baseline_temperature(temp, elev, win=15, fallback_threshold=0.02)
     for g, w in zip(got, want):
         assert _rel(g, w) < TOL
+
+
+# --- threefry field --------------------------------------------------------
+# Bars: the key words and the 32-bit draws are uint32-equal to JAX's; the
+# normal values are within 3e-5 of JAX's (the port writes XLA's f32 erf_inv
+# polynomial but its own log1p: measured within 5e-7 on a CPU, where
+# torch.erfinv would differ by up to 1.5e-5); crops of the port's own field
+# agree bit for bit at any alignment.
+THREEFRY_TOL = 3e-5
+
+
+@pytest.mark.parametrize("seed,ty,tx", [
+    (0, 0, 0), (1234, -3, 7), (2 ** 64 - 1, 5, -9), (2 ** 40 + 17, 2 ** 20, -1)])
+def test_threefry_key_data_and_bits_equal_jax(seed, ty, tx):
+    import jax
+
+    key = jnoise._tile_key(seed, ty, tx)
+    k1, k2 = noise_field._tile_key(seed, ty, tx)
+    want_key = np.asarray(jax.random.key_data(key), np.uint32)
+    np.testing.assert_array_equal(np.asarray([int(k1), int(k2)], np.uint32), want_key)
+    want_bits = np.asarray(jax.random.bits(key, (3, 5, 7)), np.uint32)
+    got_bits = noise_field.random_bits((k1, k2), torch.arange(105)).reshape(3, 5, 7)
+    np.testing.assert_array_equal(got_bits.numpy().astype(np.uint32), want_bits)
+    # the seed-pair form derives the same key as the python int
+    k1p, k2p = noise_field._tile_key(jnoise.seed_to_pair(seed), ty, tx)
+    assert (int(k1p), int(k2p)) == (int(k1), int(k2))
+
+
+@pytest.mark.parametrize("seed,ty,tx", [(99, -1, 0), (2 ** 63 + 5, 7, -3)])
+def test_threefry_tile_matches_jax(seed, ty, tx):
+    want = np.asarray(jnoise.threefry_tile(seed, ty, tx, 3, 16, 24))
+    got = noise_field.threefry_tile(seed, ty, tx, 3, 16, 24)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(np.max(np.abs(got.numpy() - want))) < THREEFRY_TOL
+
+
+@pytest.mark.parametrize("seed,y0,x0,h,w,ch,tile", [
+    (1234, 0, 0, 64, 64, 5, 64), (1235, -70, 33, 64, 96, 6, 64),
+    (2 ** 63 + 5, 4096, -512, 40, 24, 1, 32), (7, -300, -1000, 512, 512, 1, 512)])
+def test_threefry_noise_patch_matches_jax(seed, y0, x0, h, w, ch, tile):
+    want = np.asarray(jnoise.threefry_noise_patch(seed, y0, x0, h=h, w=w, channels=ch,
+                                                  tile_h=tile, tile_w=tile))
+    got = noise_field.threefry_noise_patch(seed, y0, x0, h=h, w=w, channels=ch,
+                                           tile_h=tile, tile_w=tile)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(np.max(np.abs(got.numpy() - want))) < THREEFRY_TOL
+
+
+def test_threefry_golden_crop():
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden_values.npz"))
+    got = noise_field.threefry_noise_patch(99, -5, 3, h=16, w=16, channels=2,
+                                           tile_h=16, tile_w=16)
+    assert float(np.max(np.abs(got.numpy() - golden["threefry_16"]))) < THREEFRY_TOL
+
+
+def test_threefry_crop_alignment_invariance():
+    """The field is a pure function of (seed, ty, tx): crops at any
+    alignment, negative coordinates included, agree bit for bit, and a
+    batch of crops equals the crops drawn one by one."""
+    kw = dict(channels=3, tile_h=32, tile_w=32)
+    big = noise_field.threefry_noise_patch(42, -50, -70, h=100, w=120, **kw)
+    for y0, x0, h, w in [(-50, -70, 100, 120), (-33, -1, 17, 40), (0, 0, 32, 32),
+                         (-1, -64, 50, 9), (17, 20, 33, 30)]:
+        crop = noise_field.threefry_noise_patch(42, y0, x0, h=h, w=w, **kw)
+        assert torch.equal(crop, big[:, y0 + 50:y0 + 50 + h, x0 + 70:x0 + 70 + w])
+    y0s, x0s = [-33, 0, 17], [-1, 5, -64]
+    batch = noise_field.threefry_noise_batch(42, y0s, x0s, 20, 24, **kw)
+    for b, (y0, x0) in enumerate(zip(y0s, x0s)):
+        assert torch.equal(batch[b], noise_field.threefry_noise_patch(
+            42, y0, x0, h=20, w=24, **kw))
+
+
+def test_erf_inv_matches_xla():
+    """The port's erf_inv is XLA's float32 polynomial: within 3e-5 of
+    jax.lax.erf_inv over the whole uniform range normal() draws from, with
+    the edge cases (+-1 -> +-inf, 0 -> 0) equal."""
+    import jax
+
+    u = torch.linspace(float(np.nextafter(np.float32(-1), np.float32(0))),
+                       float(np.nextafter(np.float32(1), np.float32(0))), 400001)
+    u = torch.cat([u, torch.tensor([-1.0, 1.0, 0.0, 1e-30, -0.5, 0.999])])
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(u.numpy())))
+    got = noise_field.erf_inv_f32(u).numpy()
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(got[~finite], want[~finite])
+    assert float(np.max(np.abs(got[finite] - want[finite]))) < THREEFRY_TOL
+
+
+@pytest.mark.parametrize("mode", ["threefry", "portable"])
+def test_noise_provider_matches_jax(mode):
+    args = (2 ** 33 + 9, -20, 40, 48, 40, 2, 32, 32)
+    want = jnoise.NoiseProvider(mode).patch(*args)
+    got = noise_field.NoiseProvider(mode).patch(*args)
+    assert isinstance(got, np.ndarray) and got.shape == want.shape
+    assert float(np.max(np.abs(got - want))) < THREEFRY_TOL
