@@ -11,14 +11,26 @@ Phases, each of which exits non-zero on failure:
    another summation order), with CUDA-event times of both: the fused block
    and the 3x3 conv at the decoder's shapes (batch 1, 2 and 16), the
    attention at the base model's midblock shape (batch 1, 16, 64), the JAX
-   package's test shapes and the largest eligible map (HW = 2048);
+   package's test shapes and the largest eligible map (HW = 2048).  Each
+   row also gives the case's FLOPs and bytes, its bound (the larger of
+   bytes / 3.35 TB/s and operations over the peak of the unit the kernel
+   runs them on: 3 x FLOPs / 495 TFLOP/s for the 3xTF32 tensor-core conv
+   kernels, FLOPs / 67 TFLOP/s for the 64 -> 1 head and the attention on
+   the CUDA cores) with
+   its share, the float32 CUDA-core figure FLOPs / 67 TFLOP/s, the time of
+   the library yardstick (``F.conv2d`` for the conv, the block's two
+   ``F.conv2d`` 3x3 convs for the block, none for the attention; TF32 off)
+   and the launches per forward.  Then the fused block against its plain
+   version run in float64 on the CPU, at production widths on small maps;
 3. threefry phase: the card's threefry noise crop equals the CPU's bit for
    bit, on a crop with negative coordinates;
 4. model phase: the production-width decoder U-Net (128x128 input) and base
    U-Net (attention_impl="pallas", 64x64 latents with a 58-dim conditioning
    vector) on the card (kernels) against the same modules on the CPU (plain
    versions); then one latent_init call at bucket 64 with the attention
-   kernel and with the plain attention, timed;
+   kernel and with the plain attention, timed; then one production-width
+   decoder forward at 512x512, batch 2 and 16, timed with CUDA events
+   beside the summed bound of its 26 + 2 kernel launches;
 5. api phase: the three production-width models (random weights from a
    seeded generator) behind the /terrain API with portable noise on a
    localhost port: /health and three 256x256 requests (a tile, the same tile
@@ -44,6 +56,7 @@ import configparser
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -53,6 +66,13 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1e-4
 SEED = 20261016
+# NVIDIA H100 SXM peaks (data sheet, dense, at the 700 W limit)
+TC_TF32_FLOPS = 495e12  # TF32 tensor cores
+F32_FLOPS = 67e12       # float32 on the CUDA cores
+HBM_BYTES = 3.35e12     # device memory, bytes/s
+HEAD_COUT = 8  # conv3x3 runs convs to at most 8 channels on the CUDA cores
+LAUNCHES_PER_FORWARD = {"fused_block": "26/decoder", "conv3x3": "2/decoder",
+                        "attention": "1/base"}
 SRC = "terrain_diffusion_tpu_torch/csrc/"
 KERNELS = {  # name -> (source, TPU kernel it replaces, case reported in the JSON line)
     "fused_block": (SRC + "fused_block.cu", "terrain_diffusion_tpu/ops/pallas_block.py:420",
@@ -109,13 +129,51 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def bound_ms(flops: float, nbytes: float, tensor_cores: bool):
+    """The least time the card could take for this work, and what sets it:
+    bytes over the memory rate, or operations over the peak of the unit that
+    runs them (three TF32 passes on the tensor cores for a 3xTF32 kernel,
+    float32 on the CUDA cores otherwise)."""
+    t_ops = 3 * flops / TC_TF32_FLOPS if tensor_cores else flops / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def block_work(x, w0, w1, c, wskip=None, x2=None, *, pre_upsample=1, **_):
+    """(FLOPs, bytes) of one fused block: both 3x3 convs and the 1x1
+    projection; each input read once, the output written once."""
+    n, hs, ws, _ = x.shape
+    px = n * hs * ws * pre_upsample ** 2
+    cin0, cmid, cout = w0.shape[2], w0.shape[3], w1.shape[3]
+    flops = 2 * 9 * px * (cin0 * cmid + cmid * cout)
+    if wskip is not None:
+        flops += 2 * px * wskip.shape[0] * wskip.shape[1]
+    inputs = [t for t in (x, x2, w0, w1, c, wskip) if t is not None]
+    return flops, 4 * (sum(t.numel() for t in inputs) + px * cout)
+
+
+def conv_work(x, w):
+    px = x.shape[0] * x.shape[1] * x.shape[2]
+    flops = 2 * 9 * px * w.shape[2] * w.shape[3]
+    return flops, 4 * (x.numel() + w.numel() + px * w.shape[3])
+
+
+def attn_work(qkv, heads):
+    """QK^T and PV over every head; qkv read once, the output written once."""
+    n, h, w, c3 = qkv.shape
+    hw, c = h * w, c3 // 3
+    return 2 * 2 * n * hw * hw * c, 4 * (qkv.numel() + n * hw * c)
+
+
 def kernel_phase(torch, fb, attn, dev):
+    import torch.nn.functional as F
+
     g = torch.Generator().manual_seed(SEED)
 
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
-    def block_case(n, hs, cx, cout, mode, x2=False, proj=False, up=1):
+    def block_args(n, hs, cx, cout, mode, x2=False, proj=False, up=1):
         cg = 2 * cx if x2 else cx
         c_main = cout if (mode == "enc" and proj) else cg
         args = (rand(n, hs, hs, cx),
@@ -127,17 +185,33 @@ def kernel_phase(torch, fb, attn, dev):
         kw = dict(mode=mode, pixel_norm=(mode == "enc"), res_balance=0.3,
                   clip_act=256.0, concat_scales=(0.7, 0.3) if x2 else None,
                   pre_upsample=up)
-        return (lambda: fb.fused_block(*args, **kw),
-                lambda: fb.fused_block_reference(*args, **kw))
+        return args, kw
+
+    def block_case(*a, **k):
+        args, kw = block_args(*a, **k)
+        x, w0, w1 = args[:3]
+        n, h, w = x.shape[0], x.shape[1] * kw["pre_upsample"], x.shape[2] * kw["pre_upsample"]
+        # the library yardstick: cuDNN's two float32 3x3 convs of the block
+        # (no single call computes the block), on inputs of their shapes
+        lib_in = [rand(n, h, w, wt.shape[2]).permute(0, 3, 1, 2) for wt in (w0, w1)]
+        lib_w = [wt.permute(3, 2, 0, 1).contiguous() for wt in (w0, w1)]
+        return dict(run=lambda: fb.fused_block(*args, **kw),
+                    ref=lambda: fb.fused_block_reference(*args, **kw),
+                    library=lambda: [F.conv2d(i, wt, padding=1) for i, wt in zip(lib_in, lib_w)],
+                    work=block_work(*args, **kw), tensor_cores=True)
 
     def conv_case(n, cin, cout):
-        args = (rand(n, 512, 512, cin), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5))
-        return lambda: fb.conv3x3(*args), lambda: fb.conv3x3_reference(*args)
+        x, wt = rand(n, 512, 512, cin), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        xv, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
+        return dict(run=lambda: fb.conv3x3(x, wt), ref=lambda: fb.conv3x3_reference(x, wt),
+                    library=lambda: F.conv2d(xv, w_oihw, padding=1),
+                    work=conv_work(x, wt), tensor_cores=cout > HEAD_COUT)
 
     def attn_case(shape, heads):
         qkv = rand(*shape, scale=3.0)
-        return (lambda: attn.fused_pixelnorm_attention(qkv, heads),
-                lambda: attn.pixelnorm_attention_reference(qkv, heads))
+        return dict(run=lambda: attn.fused_pixelnorm_attention(qkv, heads),
+                    ref=lambda: attn.pixelnorm_attention_reference(qkv, heads),
+                    library=None, work=attn_work(qkv, heads), tensor_cores=False)
 
     cases = []
     for n in (1, 2):
@@ -156,6 +230,7 @@ def kernel_phase(torch, fb, attn, dev):
         ]
     cases += [  # the largest decoder bucket
         ("fused_block", "enc 512x512 64->64 b16", block_case(16, 512, 64, 64, "enc")),
+        ("conv3x3", "in conv 512x512 6->64 b16", conv_case(16, 6, 64)),
         ("conv3x3", "out conv 512x512 64->1 b16", conv_case(16, 64, 1)),
     ]
     cases += [("attention", f"midblock 8x8 12x64 b{n}", attn_case((n, 8, 8, 2304), 12))
@@ -164,22 +239,90 @@ def kernel_phase(torch, fb, attn, dev):
               ("attention", "jax test 16x16 2x64 b1", attn_case((1, 16, 16, 384), 2)),
               ("attention", "largest 32x64 3x64 b1", attn_case((1, 32, 64, 576), 3))]
     rows = []
-    for kernel, name, (run, ref) in cases:
-        got = run()
+    for kernel, name, case in cases:
+        got = case["run"]()
         torch.cuda.synchronize()
-        want = ref()
+        want = case["ref"]()
         err_abs = float((got - want).abs().max())
         rel = err_abs / float(want.abs().max())
-        ms, plain_ms = time_ms(run), time_ms(ref)
-        print(f"[kernel] {kernel:11s} {name:34s} rel_err={rel:.3e} "
-              f"max_abs_err={err_abs:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms",
+        ms, plain_ms = time_ms(case["run"]), time_ms(case["ref"])
+        lib_ms = time_ms(case["library"]) if case["library"] else None
+        flops, nbytes = case["work"]
+        b_ms, b_by = bound_ms(flops, nbytes, case["tensor_cores"])
+        f32_ms = flops / F32_FLOPS * 1e3
+        print(f"[kernel] {kernel:11s} {name:34s} rel_err={rel:.3e} max_abs_err={err_abs:.3e} "
+              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library="
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'} | {flops / 1e9:.3f} GFLOP "
+              f"{nbytes / 1e6:.1f} MB bound={b_ms:.4f} ms ({b_by}"
+              f"{', 3xTF32 tensor cores' if case['tensor_cores'] else ', f32 CUDA cores'}) "
+              f"share={b_ms / ms:.1%} f32-cuda-core={f32_ms:.4f} ms "
+              f"({f32_ms / ms:.1%}) launches/forward={LAUNCHES_PER_FORWARD[kernel]}",
               flush=True)
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(rel < KERNEL_TOL, f"{name}: rel err {rel:.3e} >= {KERNEL_TOL}")
         rows.append(dict(kernel=kernel, case=name, max_abs_err=err_abs, rel_err=rel,
-                         ms=ms, plain_ms=plain_ms))
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by))
         del got, want
+    float64_checks(torch, fb, block_args)
     return rows
+
+
+def float64_checks(torch, fb, block_args):
+    """The fused block against its plain version run in float64 on the CPU,
+    at production widths on maps small enough for the CPU."""
+    for name, a, k in (("enc 128x128 proj 64->128", (1, 128, 64, 128, "enc"), {"proj": True}),
+                       ("dec 64x64 pre-up 256", (1, 32, 256, 256, "dec"), {"up": 2}),
+                       ("dec 128x128 x2-concat 64+64->64", (1, 128, 64, 64, "dec"),
+                        {"x2": True, "proj": True}),
+                       ("dec 128x128 proj 192->64", (1, 128, 192, 64, "dec"), {"proj": True})):
+        args, kw = block_args(*a, **k)
+        got = fb.fused_block(*args, **kw).double().cpu()
+        plain = fb.fused_block_reference(*args, **kw).double().cpu()
+        exact = fb.fused_block_reference(
+            *(t.double().cpu() if t is not None else None for t in args), **kw)
+        rel = rel_err(got, exact)
+        print(f"[float64] fused_block {name}: kernel vs float64 CPU rel_err={rel:.3e} "
+              f"(the plain version, cuDNN float32: {rel_err(plain, exact):.3e})", flush=True)
+        check(rel < KERNEL_TOL, f"fused block {name}: {rel:.3e} from the float64 oracle")
+
+
+def decoder_forward_phase(torch, fb, decoder, dev):
+    """One production-width decoder forward at 512x512, b2 and b16, timed
+    with CUDA events, beside the summed bound of its kernel launches (the
+    shapes recorded from the forward itself)."""
+    from terrain_diffusion_tpu_torch.nn import edm_unet, layers
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    for n in (2, 16):
+        x = torch.randn((n, 512, 512, 5), generator=g).to(dev)
+        nl = torch.full((n,), 1.2, device=dev)
+        calls = []
+        fused, conv = layers.fused_block, edm_unet.conv3x3
+
+        def rec_block(*a, **k):
+            calls.append((*block_work(*a, **k), True))
+            return fused(*a, **k)
+
+        def rec_conv(x, w):
+            calls.append((*conv_work(x, w), w.shape[3] > HEAD_COUT))
+            return conv(x, w)
+
+        layers.fused_block, edm_unet.conv3x3 = rec_block, rec_conv
+        try:
+            with torch.no_grad():
+                decoder(x, nl, [])
+        finally:
+            layers.fused_block, edm_unet.conv3x3 = fused, conv
+        check(len(calls) == 28, f"decoder forward made {len(calls)} kernel calls, not 26 + 2")
+        bound = sum(bound_ms(*call)[0] for call in calls)
+        flops = sum(f for f, _, _ in calls)
+        with torch.no_grad():
+            ms = time_ms(lambda: decoder(x, nl, []), iters=3)
+        print(f"[decoder] forward 512x512 b{n}: {ms:.2f} ms; its 26 + 2 kernel launches: "
+              f"{flops / 1e9:.1f} GFLOP, summed bound {bound:.2f} ms (3xTF32 tensor cores / "
+              f"bytes), f32 CUDA-core figure {flops / F32_FLOPS * 1e3:.2f} ms", flush=True)
+        del x
 
 
 def threefry_phase(torch, dev):
@@ -527,9 +670,14 @@ def main():
     path = cuda_lib.build_kernels()
     print(f"[build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    source = None
     for line in cuda_lib.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+        source = line[3:].strip() if line.startswith("==") else source
+        spilled = re.search(r"([1-9]\d*) bytes spill stores", line)
+        check(not (spilled and source in ("conv3x3.cu", "fused_block.cu")),
+              f"a kernel of {source} spills registers: {line.strip()}")
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -541,6 +689,7 @@ def main():
     timed("threefry", lambda: threefry_phase(torch, dev))
     models = timed("model build", lambda: build_models(torch, dev))
     timed("model", lambda: model_phase(torch, np, attn, models, dev))
+    timed("decoder forward", lambda: decoder_forward_phase(torch, fb, models[2], dev))
     timed("api", lambda: api_phase(torch, np, cuda_lib, fb, attn, models, dev))
     launches = timed("minecraft", lambda: minecraft_phase(torch, np, cuda_lib, fb, attn,
                                                           models, dev))
@@ -554,7 +703,8 @@ def main():
                        "replaces": replaces, "launches": launches[kernel],
                        "max_abs_err": max(r["max_abs_err"] for r in mine),
                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-                       "case": case})
+                       "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+                       "library_ms": main_case["library_ms"], "case": case})
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,11 @@
 ``terrain_diffusion_tpu.common.cli_helpers``)."""
 from __future__ import annotations
 
+import argparse
 import json
 import re
+
+import torch
 
 
 def parse_cache_size(value: str | None) -> int | None:
@@ -36,3 +39,11 @@ def parse_batch_sizes(value: str):
     if "," in value:
         return [int(x.strip()) for x in value.split(",")]
     return int(value)
+
+
+def check_device(ap: argparse.ArgumentParser, device: str):
+    """Exit with a usage error, before any model is loaded, when the device
+    asks for a card that torch cannot see: no quiet fallback to the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        ap.error(f"--device {device}: torch sees no CUDA device; "
+                 "pass --device cpu to run on the CPU")

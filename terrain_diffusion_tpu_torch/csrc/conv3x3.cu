@@ -10,18 +10,23 @@
 // writes 64 per pixel, so it is bound by the store of its output (64 MB for
 // one 512x512 tile); the 64 -> 1 head reads 64 floats per pixel and is
 // bound by that read.  Neither does enough arithmetic (9 * 6 * 64 and
-// 9 * 64 FMAs per pixel) to be bound by the CUDA cores.
-// What the design does: the 1-pixel halo is staged once per block in shared
-// memory (the TPU kernel carried it between sequential grid steps; CUDA
-// blocks run in no order, so each block loads its own halo, and the image
-// border becomes a bounds check instead of a row mask), and the Cout = 1
-// head runs one-channel tiles of 512 pixels so no lane computes a channel
-// that does not exist.
+// 9 * 64 FMAs per pixel) to be bound by the tensor cores, even in 3xTF32.
+// What the design does: the input conv runs on the tensor-core core of
+// conv3x3.cuh in K chunks of 8 channels, so its 6 channels are one chunk:
+// each persistent block stages the 13.8 KB weight once and keeps it
+// resident while it walks its pixel tiles, and the halo of the next tile
+// loads while this one computes (6-channel rows are 24 bytes, so they take
+// 4-byte copies).  The 64 -> 1 head runs the direct conv of conv3x3.cuh on
+// the CUDA cores: one block per 16 x 32 pixel tile, the input staged 8
+// channels at a time, so no lane computes a channel that does not exist.
+// The 1-pixel halo is staged once per tile in shared memory (the TPU kernel
+// carried it between sequential grid steps; CUDA blocks run in no order),
+// and the image border is a bounds check instead of a row mask.
 #include "conv3x3.cuh"
 
 extern "C" int tdt_conv3x3(const float* x, const float* w, float* y, int N,
                            int H, int W, int Cin, int Cout, void* stream) {
   tdt::EpiArgs epi = {};
-  return (int)tdt::launch_conv3x3<tdt::IN_NONE, tdt::EPI_NONE>(
+  return (int)tdt::launch_conv<3, tdt::IN_NONE, tdt::EPI_NONE>(
       x, w, y, N, H, W, Cin, Cout, epi, (cudaStream_t)stream);
 }

@@ -14,43 +14,38 @@
 //   9. clip to +-clip_val unless an attention tail follows.
 //
 // What bounds it on the H100: the two 3x3 convs.  At the decoder's widths
-// (64..256 channels at 512..128 px) each conv does 9 * Cin * Cout FMAs per
-// pixel against 4 * (Cin + Cout) bytes of activations, far above the
-// card's float32 ridge point, so the block is bound by the float32 FMA rate
-// of the CUDA cores (tensor cores would need TF32 or lower precision,
-// which breaks float32 parity).
-// What the design does: three launches.  The prologue (steps 1-3, or step 7
-// when launched on the residual) gathers each pixel's channels into shared
-// memory, applies the concat scales and the nearest-up by index
-// arithmetic, projects and normalizes.  conv0 applies silu while staging its
-// input and the gain + silu in its epilogue (steps 4-5); conv1 applies the
-// residual mix and clip in its epilogue (steps 6, 8, 9).  The intermediates
-// xs and h pass through device memory; the TPU kernel kept them in VMEM,
-// which a later change can mirror by keeping them in shared memory.  The
-// TPU-only devices (carried VMEM halo, tile-row picker, MXU tap packing, row
-// masks, batch cutover) are gone: halos are staged per block and the image
-// border is a bounds check.
+// (64..448 input and 64..256 output channels at 512..128 px) each does
+// 9 * Cin * Cout FMAs per pixel against 4 * (Cin + Cout) bytes, so the block
+// is bound by the tensor cores in 3xTF32: 3 * FLOPs / 495 TFLOP/s.
+// What the design does: the products (both 3x3 convs and the 1x1
+// projection) run on one tensor-core core, conv3x3.cuh (implicit GEMM,
+// 3xTF32, the float32 accuracy of the JAX kernel's Precision.HIGHEST dots).
+// Up to four launches: the gather (step 1-2, and the pixel norm of step 3)
+// is one memory-bound pass over each pixel's channels; the projection is
+// the core with one tap; conv0 applies silu to its staged input tile and
+// gain + silu in its epilogue (steps 4-5); conv1 applies the residual mix
+// and clip in its epilogue (steps 6, 8, 9).  The intermediates xs and h pass
+// through device memory; the TPU kernel kept them in VMEM.  The TPU-only
+// devices (carried VMEM halo, tile-row picker, MXU tap packing, row masks,
+// batch cutover) are gone: halos are staged per block and the image border
+// is a bounds check.
 #include "conv3x3.cuh"
 
 namespace tdt {
 
-constexpr int PRO_PIX = 8;  // pixels per prologue block
+constexpr int PRO_PIX = 8;  // pixels per gather block
 
-// out[p] = norm?(proj?(gather(p))) for each output pixel p of (N, H, W).
+// out[p] = norm?(gather(p)) for each output pixel p of (N, H, W).
 // gather: x2 == nullptr -> x scaled by s1 (x at half resolution when
 // pre_up); else concat(x * s1, x2 * s2) along channels.
 __global__ void __launch_bounds__(256)
-block_prologue_kernel(const float* __restrict__ x, const float* __restrict__ x2,
-                      float s1, float s2, int pre_up,
-                      const float* __restrict__ wskip, int norm,
-                      float* __restrict__ out, int N, int H, int W, int Cx,
-                      int Cout) {
+block_gather_kernel(const float* __restrict__ x, const float* __restrict__ x2,
+                    float s1, float s2, int pre_up, int norm, float* __restrict__ out,
+                    int N, int H, int W, int Cx) {
   extern __shared__ float smem[];
-  const int Cg = x2 ? 2 * Cx : Cx;          // gathered channels
-  const int Co = wskip ? Cout : Cg;         // written channels
-  float* s_in = smem;                       // [PRO_PIX][Cg]
-  float* s_proj = s_in + PRO_PIX * Cg;      // [PRO_PIX][Cout] when wskip
-  float* s_den = s_proj + (wskip ? PRO_PIX * Cout : 0);  // [PRO_PIX]
+  const int Cg = x2 ? 2 * Cx : Cx;    // gathered channels
+  float* s_in = smem;                 // [PRO_PIX][Cg]
+  float* s_den = s_in + PRO_PIX * Cg;  // [PRO_PIX]
   const long total = (long)N * H * W;
   const long pix0 = (long)blockIdx.x * PRO_PIX;
   const int tid = threadIdx.x;
@@ -74,63 +69,53 @@ block_prologue_kernel(const float* __restrict__ x, const float* __restrict__ x2,
   }
   __syncthreads();
 
-  const float* src = s_in;
-  if (wskip) {
-    for (int i = tid; i < PRO_PIX * Cout; i += blockDim.x) {
-      const int p = i / Cout;
-      const int o = i % Cout;
-      const float* row = s_in + p * Cg;
-      float acc = 0.0f;
-      for (int c = 0; c < Cg; ++c) acc = fmaf(row[c], wskip[(long)c * Cout + o], acc);
-      s_proj[i] = acc;
-    }
-    __syncthreads();
-    src = s_proj;
-  }
-
   if (norm) {
     const int warp = tid / 32;
     const int lane = tid % 32;
     for (int p = warp; p < PRO_PIX; p += blockDim.x / 32) {
       float ss = 0.0f;
-      for (int c = lane; c < Co; c += 32) ss += src[p * Co + c] * src[p * Co + c];
+      for (int c = lane; c < Cg; c += 32) ss += s_in[p * Cg + c] * s_in[p * Cg + c];
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      if (lane == 0) s_den[p] = 1e-4f + sqrtf(ss / (float)Co);
+      if (lane == 0) s_den[p] = 1e-4f + sqrtf(ss / (float)Cg);
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < PRO_PIX * Co; i += blockDim.x) {
-    const int p = i / Co;
+  for (int i = tid; i < PRO_PIX * Cg; i += blockDim.x) {
+    const int p = i / Cg;
     const long pix = pix0 + p;
     if (pix >= total) continue;
-    const float v = src[i];
-    out[pix * Co + (i % Co)] = norm ? v / s_den[p] : v;
+    const float v = s_in[i];
+    out[pix * Cg + (i % Cg)] = norm ? v / s_den[p] : v;
   }
 }
 
 }  // namespace tdt
 
-extern "C" int tdt_block_prologue(const float* x, const float* x2, float s1,
-                                  float s2, int pre_up, const float* wskip,
-                                  int norm, float* out, int N, int H, int W,
-                                  int Cx, int Cout, void* stream) {
+extern "C" int tdt_block_gather(const float* x, const float* x2, float s1, float s2,
+                                int pre_up, int norm, float* out, int N, int H, int W,
+                                int Cx, void* stream) {
   const int Cg = x2 ? 2 * Cx : Cx;
-  const size_t smem =
-      sizeof(float) * (tdt::PRO_PIX * Cg + (wskip ? tdt::PRO_PIX * Cout : 0) +
-                       tdt::PRO_PIX);
+  const size_t smem = sizeof(float) * (tdt::PRO_PIX * Cg + tdt::PRO_PIX);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tdt::block_prologue_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        tdt::block_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long total = (long)N * H * W;
   const unsigned blocks = (unsigned)((total + tdt::PRO_PIX - 1) / tdt::PRO_PIX);
-  tdt::block_prologue_kernel<<<blocks, 256, smem, (cudaStream_t)stream>>>(
-      x, x2, s1, s2, pre_up, wskip, norm, out, N, H, W, Cx, Cout);
+  tdt::block_gather_kernel<<<blocks, 256, smem, (cudaStream_t)stream>>>(
+      x, x2, s1, s2, pre_up, norm, out, N, H, W, Cx);
   return (int)cudaGetLastError();
+}
+
+// out = x @ wskip: the 1x1 projection, as the tensor-core core with one tap
+extern "C" int tdt_block_proj(const float* x, const float* wskip, float* out, int N,
+                              int H, int W, int Cin, int Cout, void* stream) {
+  tdt::EpiArgs epi = {};
+  return (int)tdt::launch_conv<1, tdt::IN_NONE, tdt::EPI_NONE>(
+      x, wskip, out, N, H, W, Cin, Cout, epi, (cudaStream_t)stream);
 }
 
 // h = silu(conv3x3(silu(xs), w0) * c)
@@ -139,7 +124,7 @@ extern "C" int tdt_block_conv0(const float* xs, const float* w0,
                                int Cin, int Cmid, void* stream) {
   tdt::EpiArgs epi = {};
   epi.gain = c;
-  return (int)tdt::launch_conv3x3<tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
+  return (int)tdt::launch_conv<3, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
       xs, w0, h, N, H, W, Cin, Cmid, epi, (cudaStream_t)stream);
 }
 
@@ -157,6 +142,6 @@ extern "C" int tdt_block_conv1(const float* h, const float* w1,
   epi.res_norm = res_norm;
   epi.clip = clip;
   epi.clip_val = clip_val;
-  return (int)tdt::launch_conv3x3<tdt::IN_NONE, tdt::EPI_RESIDUAL>(
+  return (int)tdt::launch_conv<3, tdt::IN_NONE, tdt::EPI_RESIDUAL>(
       h, w1, out, N, H, W, Cmid, Cout, epi, (cudaStream_t)stream);
 }

@@ -35,7 +35,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (every entry point returns a cudaError_t)
 _SIGNATURES = {
     "tdt_conv3x3": [P, P, P, I, I, I, I, I, P],
-    "tdt_block_prologue": [P, P, F, F, I, P, I, P, I, I, I, I, I, P],
+    "tdt_block_gather": [P, P, F, F, I, I, P, I, I, I, I, P],
+    "tdt_block_proj": [P, P, P, I, I, I, I, I, P],
     "tdt_block_conv0": [P, P, P, P, I, I, I, I, I, P],
     "tdt_block_conv1": [P, P, P, P, I, I, I, I, I, F, F, F, I, F, P],
     "tdt_pixelnorm_attention": [P, P, I, I, I, I, F, P],

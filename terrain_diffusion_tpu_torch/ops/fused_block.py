@@ -7,6 +7,11 @@ plain PyTorch versions.
 - ``conv3x3``: a SAME-padded 3x3 conv with a prepared HWIO weight
   (``csrc/conv3x3.cu``), the counterpart of ``fused_conv3x3_apply``.
 
+Both run their 3x3 convs and the block's 1x1 projection on one tensor-core
+conv core (``csrc/conv3x3.cuh``: implicit GEMM in 3xTF32, float32 in and
+out); a conv to at most 8 channels (the 64 -> 1 head) runs a direct conv on
+the CUDA cores.
+
 ``fused_block_reference`` / ``conv3x3_reference`` take the same arguments
 and compute the same math with ``F.conv2d`` and tensor ops.  A wrapper uses
 its plain version only for a tensor that lies on the CPU; for a CUDA tensor
@@ -33,8 +38,10 @@ INV_SILU_GAIN = 1.0 / 0.596  # mp_silu divisor, folded into the conv weights
 # ---------------------------------------------------------------------------
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain version: SAME 3x3 conv of NHWC x with a prepared HWIO weight."""
-    return conv2d_nhwc(x.float(), hwio_to_oihw(w.float()), padding=1).contiguous()
+    """Plain version: SAME 3x3 conv of NHWC x with a prepared HWIO weight, in
+    float32, or in float64 for a float64 input (an exact oracle)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    return conv2d_nhwc(x.to(dt), hwio_to_oihw(w.to(dt)), padding=1).contiguous()
 
 
 @counted
@@ -57,7 +64,6 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-
 # ---------------------------------------------------------------------------
 # fused residual block
 # ---------------------------------------------------------------------------
@@ -76,26 +82,28 @@ def _residual_coeffs(res_balance: float):
 def fused_block_reference(x, w0, w1, c, wskip=None, x2=None, *, mode="enc",
                           pixel_norm=True, res_balance=0.3, clip_act=256.0,
                           concat_scales=None, pre_upsample=1):
-    """Plain version of ``fused_block`` (same arguments, same math)."""
-    xs = x.float()
+    """Plain version of ``fused_block`` (same arguments, same math), in
+    float32, or in float64 for a float64 ``x`` (an exact oracle)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xs = x.to(dt)
     if x2 is not None:
         s1, s2 = concat_scales
-        xs = torch.cat([xs * s1, x2.float() * s2], dim=-1)
+        xs = torch.cat([xs * s1, x2.to(dt) * s2], dim=-1)
     if pre_upsample == 2:
         xs = xs.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     if mode == "enc":
         if wskip is not None:
-            xs = torch.matmul(xs, wskip.float())
+            xs = torch.matmul(xs, wskip.to(dt))
         if pixel_norm:
             rms = torch.sqrt(torch.mean(xs * xs, dim=-1, keepdim=True))
             xs = xs / (1e-4 + rms)
         xres = xs
     else:
-        xres = torch.matmul(xs, wskip.float()) if wskip is not None else xs
-    h = conv2d_nhwc(_silu(xs), hwio_to_oihw(w0.float() * INV_SILU_GAIN), padding=1)
+        xres = torch.matmul(xs, wskip.to(dt)) if wskip is not None else xs
+    h = conv2d_nhwc(_silu(xs), hwio_to_oihw(w0.to(dt) * INV_SILU_GAIN), padding=1)
     if c is not None:
-        h = h * c.float()[:, None, None, :]
-    y = conv2d_nhwc(_silu(h), hwio_to_oihw(w1.float() * INV_SILU_GAIN), padding=1)
+        h = h * c.to(dt)[:, None, None, :]
+    y = conv2d_nhwc(_silu(h), hwio_to_oihw(w1.to(dt) * INV_SILU_GAIN), padding=1)
     a, b, norm = _residual_coeffs(res_balance)
     out = (xres * a + y * b) / norm
     if clip_act is not None:
@@ -170,21 +178,35 @@ def fused_block(x, w0, w1, c, wskip=None, x2=None, *, mode="enc",
     lib = load()
     strm = stream(dev)
 
-    def prologue(src, src2, up, proj, norm, c_src):
-        c_out = proj.shape[1] if proj is not None else (2 * c_src if src2 is not None else c_src)
-        out = torch.empty((N, H, W, c_out), device=dev, dtype=torch.float32)
-        check_rc(lib.tdt_block_prologue(
+    def gather(src, src2, up, norm):
+        """concat / nearest-up / pixel norm: one memory-bound pass"""
+        c_src = src.shape[3]
+        out = torch.empty((N, H, W, 2 * c_src if src2 is not None else c_src),
+                          device=dev, dtype=torch.float32)
+        check_rc(lib.tdt_block_gather(
             src.data_ptr(), ptr(src2), s1 if src2 is not None else 1.0, s2,
-            int(up == 2), ptr(proj), int(norm), out.data_ptr(), N, H, W,
-            c_src, c_out, strm), "fused_block prologue")
+            int(up == 2), int(norm), out.data_ptr(), N, H, W, c_src, strm),
+            "fused_block gather")
         return out
 
-    if mode == "enc":
-        xs = prologue(x, x2, u, wskip, pixel_norm, Cx)
+    def project(src):
+        """the 1x1 projection on the tensor-core conv core"""
+        out = torch.empty((N, H, W, Cout), device=dev, dtype=torch.float32)
+        check_rc(lib.tdt_block_proj(src.data_ptr(), wskip.data_ptr(), out.data_ptr(),
+                                    N, H, W, src.shape[3], Cout, strm),
+                 "fused_block projection")
+        return out
+
+    gathered = x2 is not None or u == 2
+    if mode == "enc" and wskip is None:
+        xs = gather(x, x2, u, pixel_norm) if (gathered or pixel_norm) else x
         xres = xs
+    elif mode == "enc":
+        xs = project(gather(x, x2, u, False) if gathered else x)
+        xres = xs = gather(xs, None, 1, True) if pixel_norm else xs
     else:
-        xs = prologue(x, x2, u, None, False, Cx) if (x2 is not None or u == 2) else x
-        xres = prologue(xs, None, 1, wskip, False, Cg) if wskip is not None else xs
+        xs = gather(x, x2, u, False) if gathered else x
+        xres = project(xs) if wskip is not None else xs
     h = torch.empty((N, H, W, Cmid), device=dev, dtype=torch.float32)
     check_rc(lib.tdt_block_conv0(xs.data_ptr(), w0.data_ptr(), c.data_ptr(),
                                   h.data_ptr(), N, H, W, xs.shape[3], Cmid, strm),

@@ -92,7 +92,7 @@ class WorldPipeline:
                  cache_limit: int | None = 100 * 1024 * 1024,
                  onestep_latent: bool = False, decoder_tile_size: int = 512,
                  decoder_tile_stride: int = 384, noise_mode: str = "threefry",
-                 device="cpu", **deprecated_kwargs):
+                 device="cuda", **deprecated_kwargs):
         if T not in (1, 2):
             raise ValueError(f"T must be 1 or 2, got {T}")
         if noise_mode not in ("threefry", "portable"):

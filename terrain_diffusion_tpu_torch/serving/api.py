@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from terrain_diffusion_tpu_torch.common.cli_helpers import (parse_batch_sizes,
+from terrain_diffusion_tpu_torch.common.cli_helpers import (check_device, parse_batch_sizes,
                                                            parse_cache_size, parse_kwargs)
 from terrain_diffusion_tpu_torch.serving.httpd import App, Response, jsonify
 
@@ -51,7 +51,7 @@ def _get_pipeline():
             cfg["model_path"], seed=cfg.get("seed"),
             latents_batch_size=cfg.get("latents_batch_size", 4),
             log_mode=cfg.get("log_mode", "verbose"),
-            cache_limit=cfg.get("cache_limit"), device=cfg.get("device", "cpu"),
+            cache_limit=cfg.get("cache_limit"), device=cfg.get("device", "cuda"),
             **cfg.get("kwargs", {}))
     if pipe.tile_store is None:
         pipe.bind()
@@ -165,7 +165,7 @@ def terrain(req):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Terrain API server (PyTorch port).")
     ap.add_argument("model_path")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="--device cpu runs on the CPU")
     ap.add_argument("--cache-size", default="100M")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--batch-size", default="1,4")
@@ -180,6 +180,7 @@ def main(argv=None):
     ap.add_argument("--kwarg", dest="extra_kwargs", action="append", default=[],
                     help="additional key=value pipeline kwargs")
     args = ap.parse_args(argv)
+    check_device(ap, args.device)
     configure(model_path=args.model_path, device=args.device,
               cache_limit=parse_cache_size(args.cache_size), seed=args.seed,
               latents_batch_size=parse_batch_sizes(args.batch_size),

@@ -27,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from terrain_diffusion_tpu_torch.common.cli_helpers import (parse_batch_sizes,
+from terrain_diffusion_tpu_torch.common.cli_helpers import (check_device, parse_batch_sizes,
                                                            parse_cache_size, parse_kwargs)
 from terrain_diffusion_tpu_torch.ops.image import resize_bilinear
 from terrain_diffusion_tpu_torch.ops.perlin import perlin_fbm
@@ -80,7 +80,7 @@ def _get_pipeline():
             latents_batch_size=cfg.get("latents_batch_size", 4),
             log_mode=cfg.get("log_mode", "verbose"), dtype=cfg.get("dtype"),
             caching_strategy=caching_strategy, cache_limit=cfg.get("cache_limit"),
-            device=cfg.get("device", "cpu"), **cfg.get("kwargs", {}))
+            device=cfg.get("device", "cuda"), **cfg.get("kwargs", {}))
     if _PIPELINE.tile_store is None:
         hdf5_file = cfg.get("hdf5_file")
         if caching_strategy == "direct":
@@ -479,8 +479,9 @@ def main(argv=None):
                     help="serve three warm-up tiles before accepting clients")
     ap.add_argument("--kwarg", dest="extra_kwargs", action="append", default=[],
                     help="additional key=value pipeline kwargs")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="--device cpu runs on the CPU")
     args = ap.parse_args(argv)
+    check_device(ap, args.device)
     hdf5_file = args.hdf5_file
     if args.caching_strategy == "indirect" and hdf5_file is None:
         hdf5_file = "TEMP"

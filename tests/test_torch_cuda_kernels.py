@@ -5,9 +5,11 @@ This file imports no JAX, so on a machine without it run it without the
 repository conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Bar: max|diff| / max|ref| < 1e-4 - float32 on both sides (TF32 off), with
-another summation order.  Shapes are small and deliberately ragged (maps
-that are not a multiple of the tile, channel counts off the tile width).
+Bar: max|diff| / max|ref| < 1e-4 - against the plain version in float32
+(TF32 off), with another summation order, and against the same math in
+float64 on the CPU.  Shapes are small and deliberately ragged (maps that are
+not a multiple of the 8 x 16 pixel tile, channel counts off the tile
+widths: Cin 5, 6, 33, Cout 1, 3, 8, 40).
 """
 import numpy as np
 import pytest
@@ -46,6 +48,9 @@ def _rel(got, want):
         (2, 40, 72, 32, 64, "dec", True, 1, False, 256.0),
         (2, 20, 36, 32, 32, "dec", False, 2, False, 256.0),
         (1, 33, 47, 48, 64, "dec", False, 1, True, None),
+        (1, 12, 20, 256, 256, "dec", False, 2, False, 256.0),  # 256-ch pre-up
+        (1, 21, 37, 192, 64, "dec", False, 1, True, 256.0),    # 192->64 projection
+        (2, 19, 27, 33, 40, "enc", False, 1, True, 256.0),     # Cin 33, Cout 40
     ])
 def test_fused_block_kernel(dev, n, h, w, cin, cout, mode, with_x2, preup, proj, clip):
     g = torch.Generator().manual_seed(0)
@@ -66,10 +71,16 @@ def test_fused_block_kernel(dev, n, h, w, cin, cout, mode, with_x2, preup, proj,
     want = fb.fused_block_reference(x, w0, w1, c, wskip, x2, **kw)
     assert got.shape == want.shape
     assert _rel(got, want) < TOL
+    # and against the same math in float64 on the CPU, independent of cuDNN
+    exact = fb.fused_block_reference(*(t.double().cpu() if t is not None else None
+                                       for t in (x, w0, w1, c, wskip, x2)), **kw)
+    assert _rel(got.double().cpu(), exact) < TOL
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [
-    (1, 64, 64, 6, 64), (2, 64, 80, 64, 1), (1, 37, 53, 5, 3), (2, 30, 50, 33, 40)])
+    (1, 64, 64, 6, 64), (2, 64, 80, 64, 1), (1, 37, 53, 5, 3), (2, 30, 50, 33, 40),
+    # off the 8 x 16 pixel tile in both axes, at the ragged widths
+    (1, 21, 35, 6, 64), (2, 19, 27, 33, 1), (1, 13, 50, 6, 40), (1, 9, 17, 256, 8)])
 def test_conv3x3_kernel(dev, n, h, w, cin, cout):
     g = torch.Generator().manual_seed(1)
     x = _rand(g, (n, h, w, cin), dev)
