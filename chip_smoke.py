@@ -8,27 +8,38 @@ Phases, each of which exits non-zero on failure:
    parallel, sm_90a);
 2. kernel phase: each kernel against its plain PyTorch version on the same
    inputs, TF32 off on both sides, bar max|diff| / max|ref| < 1e-4 (float32,
-   another summation order), with CUDA-event times of both: the fused block
+   another summation order), with the eager times of the kernel, its plain
+   version and the library yardstick (CUDA events around 5 calls, the
+   wrappers' host work included, as the eager main path pays it) and,
+   beside them, the kernel's device time (``device_ms``: 5 calls in a CUDA
+   graph, replayed and timed with CUDA events, host work left out): the fused block
    and the 3x3 conv at the decoder's shapes (batch 1, 2 and 16), the
    attention at the base model's midblock shape (batch 1, 16, 64), the JAX
    package's test shapes and the largest eligible map (HW = 2048).  Each
    row also gives the case's FLOPs and bytes, its bound (the larger of
    bytes / 3.35 TB/s and operations over the peak of the unit the kernel
-   runs them on: 3 x FLOPs / 495 TFLOP/s for the 3xTF32 tensor-core conv
-   kernels, FLOPs / 67 TFLOP/s for the 64 -> 1 head and the attention on
-   the CUDA cores) with
-   its share, the float32 CUDA-core figure FLOPs / 67 TFLOP/s, the time of
-   the library yardstick (``F.conv2d`` for the conv, the block's two
-   ``F.conv2d`` 3x3 convs for the block, none for the attention; TF32 off)
-   and the launches per forward.  Then the fused block against its plain
-   version run in float64 on the CPU, at production widths on small maps;
+   runs them on: 3 x FLOPs / 495 TFLOP/s for the 3xTF32 tensor-core
+   kernels, FLOPs / 67 TFLOP/s for the 64 -> 1 head and the attention's
+   CUDA-core path) with its share, the float32 CUDA-core figure FLOPs / 67
+   TFLOP/s, the time of the library yardstick (``F.conv2d`` for the conv,
+   the block's two ``F.conv2d`` 3x3 convs for the block,
+   ``F.scaled_dot_product_attention`` on pre-normed (N, heads, HW, ch)
+   tensors for the attention, which leaves out its pixel norm and layout
+   change; TF32 off) and the launches per forward.  Each attention row
+   names the kernel path its width takes, as the built library dispatches
+   it (``library_attention_path``, checked equal to ``attention_path``);
+   one row, a head of 400 channels, runs the CUDA-core kernel.  Then the
+   fused block, at production widths on small maps, and the attention at
+   the midblock b64 and HW = 2048, against their plain versions run in
+   float64 on the CPU, beside the float32 plain version's own error;
 3. threefry phase: the card's threefry noise crop equals the CPU's bit for
    bit, on a crop with negative coordinates;
 4. model phase: the production-width decoder U-Net (128x128 input) and base
    U-Net (attention_impl="pallas", 64x64 latents with a 58-dim conditioning
    vector) on the card (kernels) against the same modules on the CPU (plain
    versions); then one latent_init call at bucket 64 with the attention
-   kernel and with the plain attention, timed; then one production-width
+   kernel and with the plain attention, timed in turns (kernel, plain,
+   plain, kernel; the least time of each); then one production-width
    decoder forward at 512x512, batch 2 and 16, timed with CUDA events
    beside the summed bound of its 26 + 2 kernel launches;
 5. api phase: the three production-width models (random weights from a
@@ -55,6 +66,7 @@ phase), the card's name and power limit, and {"ok": true, "device": {...}}.
 import configparser
 import copy
 import json
+import math
 import os
 import re
 import subprocess
@@ -125,6 +137,25 @@ def time_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 5) -> float:
+    """Device time of one call of fn: iters calls captured in a CUDA graph
+    (after a warm-up call outside it), replayed and timed with CUDA events."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    ms = time_ms(graph.replay, iters=3) / iters
+    del graph
+    return ms
+
+
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
@@ -163,6 +194,16 @@ def attn_work(qkv, heads):
     n, h, w, c3 = qkv.shape
     hw, c = h * w, c3 // 3
     return 2 * 2 * n * hw * hw * c, 4 * (qkv.numel() + n * hw * c)
+
+
+def sdpa_inputs(qkv, heads: int, eps: float = 1e-4):
+    """q, k, v of every head, pixel-normed, as contiguous (N, heads, HW, ch)
+    tensors: the inputs of the attention's library yardstick."""
+    n, h, w, c3 = qkv.shape
+    ch = c3 // 3 // heads
+    y = qkv.reshape(n, h * w, heads, ch, 3).permute(4, 0, 2, 1, 3)
+    y = y / (eps + y.norm(dim=-1, keepdim=True) / math.sqrt(ch))
+    return [t.contiguous() for t in y]
 
 
 def kernel_phase(torch, fb, attn, dev):
@@ -209,9 +250,18 @@ def kernel_phase(torch, fb, attn, dev):
 
     def attn_case(shape, heads):
         qkv = rand(*shape, scale=3.0)
+        ch = shape[3] // 3 // heads
+        path = attn.library_attention_path(ch)
+        check(path == attn.attention_path(ch),
+              f"ch = {ch}: the library dispatches to {path}, attention_path says "
+              f"{attn.attention_path(ch)}")
+        # the library yardstick computes less: no pixel norm, no layout change
+        q, k, v = sdpa_inputs(qkv, heads)
         return dict(run=lambda: attn.fused_pixelnorm_attention(qkv, heads),
                     ref=lambda: attn.pixelnorm_attention_reference(qkv, heads),
-                    library=None, work=attn_work(qkv, heads), tensor_cores=False)
+                    library=lambda: F.scaled_dot_product_attention(q, k, v),
+                    work=attn_work(qkv, heads), tensor_cores=path == "tensor_cores",
+                    label=f"[{path}]")
 
     cases = []
     for n in (1, 2):
@@ -237,7 +287,8 @@ def kernel_phase(torch, fb, attn, dev):
               for n in (1, 16, 64)]
     cases += [("attention", "jax test 8x8 1x64 b2", attn_case((2, 8, 8, 192), 1)),
               ("attention", "jax test 16x16 2x64 b1", attn_case((1, 16, 16, 384), 2)),
-              ("attention", "largest 32x64 3x64 b1", attn_case((1, 32, 64, 576), 3))]
+              ("attention", "largest 32x64 3x64 b1", attn_case((1, 32, 64, 576), 3)),
+              ("attention", "wide head 8x8 1x400 b1", attn_case((1, 8, 8, 1200), 1))]
     rows = []
     for kernel, name, case in cases:
         got = case["run"]()
@@ -247,30 +298,38 @@ def kernel_phase(torch, fb, attn, dev):
         rel = err_abs / float(want.abs().max())
         ms, plain_ms = time_ms(case["run"]), time_ms(case["ref"])
         lib_ms = time_ms(case["library"]) if case["library"] else None
+        device_ms = graph_ms(case["run"])
         flops, nbytes = case["work"]
         b_ms, b_by = bound_ms(flops, nbytes, case["tensor_cores"])
         f32_ms = flops / F32_FLOPS * 1e3
-        print(f"[kernel] {kernel:11s} {name:34s} rel_err={rel:.3e} max_abs_err={err_abs:.3e} "
-              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library="
+        label = f"{name} {case.get('label', '')}"
+        print(f"[kernel] {kernel:11s} {label:34s} rel_err={rel:.3e} max_abs_err={err_abs:.3e} "
+              f"kernel={ms:.4f} ms (device {device_ms:.4f} ms) plain={plain_ms:.4f} ms library="
               f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'} | {flops / 1e9:.3f} GFLOP "
               f"{nbytes / 1e6:.1f} MB bound={b_ms:.4f} ms ({b_by}"
               f"{', 3xTF32 tensor cores' if case['tensor_cores'] else ', f32 CUDA cores'}) "
-              f"share={b_ms / ms:.1%} f32-cuda-core={f32_ms:.4f} ms "
+              f"share={b_ms / ms:.1%} (device {b_ms / device_ms:.1%}) "
+              f"f32-cuda-core={f32_ms:.4f} ms "
               f"({f32_ms / ms:.1%}) launches/forward={LAUNCHES_PER_FORWARD[kernel]}",
               flush=True)
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(rel < KERNEL_TOL, f"{name}: rel err {rel:.3e} >= {KERNEL_TOL}")
         rows.append(dict(kernel=kernel, case=name, max_abs_err=err_abs, rel_err=rel,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+                         ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
         del got, want
-    float64_checks(torch, fb, block_args)
+    print("[kernel] attention library = F.scaled_dot_product_attention(q, k, v) on pre-normed "
+          "contiguous (N, heads, HW, ch) f32 tensors, TF32 off: it leaves out the pixel norm and "
+          "the layout change", flush=True)
+    float64_checks(torch, fb, attn, block_args, rand)
     return rows
 
 
-def float64_checks(torch, fb, block_args):
-    """The fused block against its plain version run in float64 on the CPU,
-    at production widths on maps small enough for the CPU."""
+def float64_checks(torch, fb, attn, block_args, rand):
+    """The fused block and the attention against their plain versions run in
+    float64 on the CPU, beside the float32 plain version's own error: the
+    block at production widths on maps small enough for the CPU, the
+    attention at the midblock b64 and the largest eligible map."""
     for name, a, k in (("enc 128x128 proj 64->128", (1, 128, 64, 128, "enc"), {"proj": True}),
                        ("dec 64x64 pre-up 256", (1, 32, 256, 256, "dec"), {"up": 2}),
                        ("dec 128x128 x2-concat 64+64->64", (1, 128, 64, 64, "dec"),
@@ -285,6 +344,18 @@ def float64_checks(torch, fb, block_args):
         print(f"[float64] fused_block {name}: kernel vs float64 CPU rel_err={rel:.3e} "
               f"(the plain version, cuDNN float32: {rel_err(plain, exact):.3e})", flush=True)
         check(rel < KERNEL_TOL, f"fused block {name}: {rel:.3e} from the float64 oracle")
+    for name, shape, heads in (("midblock 8x8 12x64 b64", (64, 8, 8, 2304), 12),
+                               ("largest 32x64 3x64 b1", (1, 32, 64, 576), 3)):
+        qkv = rand(*shape, scale=3.0)
+        got = attn.fused_pixelnorm_attention(qkv, heads).double().cpu()
+        plain = attn.pixelnorm_attention_reference(qkv, heads).double().cpu()
+        exact = attn.pixelnorm_attention_reference(qkv.double().cpu(), heads)
+        rel, rel_plain = rel_err(got, exact), rel_err(plain, exact)
+        print(f"[float64] attention {name} [{attn.attention_path(shape[3] // 3 // heads)}]: "
+              f"kernel vs float64 CPU rel_err={rel:.3e} (the plain version, float32: "
+              f"{rel_plain:.3e}; ratio {rel / rel_plain:.2f})", flush=True)
+        check(rel < KERNEL_TOL and rel <= 2 * rel_plain,
+              f"attention {name}: {rel:.3e} from the float64 oracle, plain {rel_plain:.3e}")
 
 
 def decoder_forward_phase(torch, fb, decoder, dev):
@@ -416,16 +487,18 @@ def model_phase(torch, np, attn, models, dev):
     ctxs = np.stack([np.zeros(64, np.int64), np.arange(64) // 8, np.arange(64) % 8], axis=1)
     coarse = torch.randn((64, 7, 4, 4), generator=g).to(dev)
     coarse[:, -1] = 1.0  # the window-weight channel
-    out, ms = {}, {}
-    with torch.no_grad():
-        for impl in ("pallas", "xla"):
+    out, turns = {}, {"pallas": [], "xla": []}
+    with torch.no_grad():  # in turns: kernel, plain, plain, kernel; the least of each
+        for impl in ("pallas", "xla", "xla", "pallas"):
             set_attention_impl(base, impl)
             out[impl] = init_f(ctxs, coarse)
-            ms[impl] = time_ms(lambda: init_f(ctxs, coarse), iters=3)
+            turns[impl].append(time_ms(lambda: init_f(ctxs, coarse), iters=3))
     set_attention_impl(base, "pallas")
     rel = rel_err(out["pallas"][:, :-1], out["xla"][:, :-1])
-    print(f"[latent] latent_init b64: attention kernel {ms['pallas']:.1f} ms, plain attention "
-          f"{ms['xla']:.1f} ms, rel_err={rel:.3e}", flush=True)
+    print(f"[latent] latent_init b64: attention kernel {min(turns['pallas']):.1f} ms, plain "
+          f"attention {min(turns['xla']):.1f} ms (turns: kernel "
+          f"{', '.join(f'{t:.1f}' for t in turns['pallas'])}; plain "
+          f"{', '.join(f'{t:.1f}' for t in turns['xla'])}), rel_err={rel:.3e}", flush=True)
     check(rel < KERNEL_TOL, f"latent_init with the kernel disagrees with plain: {rel:.3e}")
 
 
@@ -670,14 +743,19 @@ def main():
     path = cuda_lib.build_kernels()
     print(f"[build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    source = None
+    # no spill in the conv kernels and the attention's tensor-core kernel
+    source = function = None
     for line in cuda_lib.build_log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if (line.startswith("==") or "registers" in line or "spill" in line
+                or "Function properties" in line):
             print(f"[build] {line.strip()}")
         source = line[3:].strip() if line.startswith("==") else source
+        found = re.search(r"Function properties for (\S+)", line)
+        function = found.group(1) if found else function
         spilled = re.search(r"([1-9]\d*) bytes spill stores", line)
-        check(not (spilled and source in ("conv3x3.cu", "fused_block.cu")),
-              f"a kernel of {source} spills registers: {line.strip()}")
+        held = source in ("conv3x3.cu", "fused_block.cu") or (
+            source == "attention.cu" and "pixelnorm_attention_tc" in (function or ""))
+        check(not (spilled and held), f"{function} of {source} spills registers: {line.strip()}")
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -702,7 +780,8 @@ def main():
         report.append({"name": kernel, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": launches[kernel],
                        "max_abs_err": max(r["max_abs_err"] for r in mine),
-                       "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                       "ms": main_case["ms"], "device_ms": main_case["device_ms"],
+                       "plain_ms": main_case["plain_ms"],
                        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
                        "library_ms": main_case["library_ms"], "case": case})
     print(json.dumps({"kernels": report}))

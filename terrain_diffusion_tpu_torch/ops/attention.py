@@ -8,6 +8,11 @@ Counterpart of ``terrain_diffusion_tpu.ops.pallas_attention``:
   ``fused_pixelnorm_attention``) for a CUDA tensor, and computes
   ``pixelnorm_attention_reference`` for a CPU tensor.  It counts its
   launches in ``fused_pixelnorm_attention.launches``.
+- ``attention_path(ch)`` says which of the source's two kernels a head of
+  ``ch`` channels runs: the 3xTF32 tensor-core kernel for 16, 32 and 64
+  channels, the CUDA-core kernel for any other width.  The C entry point
+  dispatches by its own copy of the rule, which ``library_attention_path``
+  reads from the built library; the card tests hold the two equal.
 - ``pixelnorm_attention_reference`` is the explicit float32 einsum + softmax
   the U-Net block runs when the kernel is not asked for.
 - ``attention_eligible`` is the JAX package's routing rule for the kernel,
@@ -27,6 +32,21 @@ import torch
 
 from terrain_diffusion_tpu_torch.ops.cuda_lib import (check_input, check_rc, counted,
                                                       load, stream)
+
+TENSOR_CORE_CHANNELS = (16, 32, 64)  # csrc/attention.cu's pixelnorm_attention_tc<CH>
+
+
+def attention_path(ch: int) -> str:
+    """The kernel a head of ``ch`` channels runs on the card: "tensor_cores"
+    (3xTF32 ``mma.sync``) or "cuda_cores" (float32 FMAs); the C entry point
+    dispatches by the same rule."""
+    return "tensor_cores" if ch in TENSOR_CORE_CHANNELS else "cuda_cores"
+
+
+def library_attention_path(ch: int) -> str:
+    """The kernel the built library's C entry point dispatches a head of
+    ``ch`` channels to (``tdt_attention_path``); builds the library."""
+    return "tensor_cores" if load().tdt_attention_path(ch) else "cuda_cores"
 
 
 def attention_eligible(qkv: torch.Tensor, num_heads: int) -> bool:
@@ -72,6 +92,8 @@ def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
     if c3 % 3 or num_heads <= 0 or (c3 // 3) % num_heads:
         raise ValueError(f"qkv shape {tuple(qkv.shape)} does not split into "
                          f"3 x {num_heads} heads")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must be 16-byte aligned: the kernel copies 16-byte words")
     c = c3 // 3
     out = torch.empty((n, h, w, c), device=qkv.device, dtype=torch.float32)
     check_rc(load().tdt_pixelnorm_attention(

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry point -> argument types (every entry point returns a cudaError_t)
+# C entry point -> argument types (every entry point returns a cudaError_t,
+# but tdt_attention_path, which returns the attention's dispatch rule)
 _SIGNATURES = {
     "tdt_conv3x3": [P, P, P, I, I, I, I, I, P],
     "tdt_block_gather": [P, P, F, F, I, I, P, I, I, I, I, P],
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "tdt_block_conv0": [P, P, P, P, I, I, I, I, I, P],
     "tdt_block_conv1": [P, P, P, P, I, I, I, I, I, F, F, F, I, F, P],
     "tdt_pixelnorm_attention": [P, P, I, I, I, I, F, P],
+    "tdt_attention_path": [I],
 }
 
 _lock = threading.Lock()

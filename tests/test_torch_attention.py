@@ -116,6 +116,26 @@ def test_attention_eligible_is_the_jax_rule(shape, heads):
         pa.attention_eligible(jnp.zeros(shape), heads)
 
 
+@pytest.mark.parametrize("ch,path", [
+    (16, "tensor_cores"), (32, "tensor_cores"), (64, "tensor_cores"),
+    (8, "cuda_cores"), (48, "cuda_cores"), (128, "cuda_cores"), (400, "cuda_cores")])
+def test_attention_path_rule(ch, path):
+    """The widths the tensor-core kernel is built for (16, 32 and 64
+    channels per head) take it; every other width takes the CUDA-core
+    kernel."""
+    assert attention.attention_path(ch) == path
+
+
+def test_cpu_tensor_needs_no_alignment(rng):
+    """The 16-byte alignment the card kernel asks for does not apply to the
+    plain version a CPU tensor takes."""
+    buf = torch.from_numpy(rng.standard_normal(2 * 8 * 8 * 192 + 1).astype(np.float32))
+    qkv = buf[1:].view(2, 8, 8, 192)
+    assert qkv.data_ptr() % 16 != 0
+    assert torch.equal(attention.fused_pixelnorm_attention(qkv, 1),
+                       attention.pixelnorm_attention_reference(qkv.clone(), 1))
+
+
 def test_base_midblock_is_eligible_at_every_latent_bucket():
     """The shipped base model's midblock attention (64 px latents, the
     deepest level) takes the kernel at every default latent batch bucket:
@@ -138,6 +158,7 @@ def test_base_midblock_is_eligible_at_every_latent_bucket():
     side = 64 // 2 ** (len(mults) - 1)
     buckets = inspect.signature(WorldPipeline).parameters["latents_batch_size"].default
     assert (side, c, heads) == (8, 768, 12) and max(buckets) == 64
+    assert attention.attention_path(c // heads) == "tensor_cores"
     for n in buckets:
         assert attention.attention_eligible(torch.empty((n, side, side, 3 * c)), heads)
 

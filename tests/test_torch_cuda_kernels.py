@@ -100,9 +100,11 @@ def test_conv3x3_kernel(dev, n, h, w, cin, cout):
 @pytest.mark.parametrize("shape,heads", [
     ((2, 8, 8, 192), 1), ((1, 16, 16, 384), 2),  # the JAX package's test shapes
     ((3, 8, 8, 2304), 12),                       # the base model's midblock
+    ((64, 8, 8, 2304), 12),                      # ... at its largest latent bucket
     ((1, 32, 64, 576), 3),                       # HW = 2048, the largest eligible
-    ((2, 5, 13, 96), 2),                         # HW = 65: a ragged last tile
-    ((1, 8, 8, 1200), 1),                        # ch = 400: a smaller query tile
+    ((2, 5, 13, 96), 2),                         # HW = 65, ch = 16: a ragged last tile
+    ((2, 9, 15, 192), 2),                        # ch = 32, HW = 135: three chunks
+    ((1, 8, 8, 1200), 1),                        # ch = 400: the CUDA-core path
 ])
 def test_attention_kernel(dev, shape, heads):
     g = torch.Generator().manual_seed(2)
@@ -116,6 +118,28 @@ def test_attention_kernel(dev, shape, heads):
     # and against the same math in float64 on the CPU
     exact = attention.pixelnorm_attention_reference(qkv.double().cpu(), heads)
     assert _rel(got.double().cpu(), exact) < TOL
+
+
+def test_attention_paths(dev):
+    """The C entry point dispatches every width as ``attention_path`` says:
+    the widths the models use take the tensor-core kernel, a wide head the
+    CUDA-core kernel."""
+    for ch in range(1, 513):
+        assert attention.library_attention_path(ch) == attention.attention_path(ch), ch
+    assert attention.library_attention_path(64) == "tensor_cores"
+    assert attention.library_attention_path(400) == "cuda_cores"
+
+
+def test_attention_rejects_a_misaligned_qkv(dev):
+    """The tensor-core kernel copies 16-byte words: a qkv 4 bytes off that
+    alignment is refused before launch."""
+    buf = torch.zeros(2 * 8 * 8 * 192 + 1, device=dev)
+    qkv = buf[1:].view(2, 8, 8, 192)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16 == 4
+    before = attention.fused_pixelnorm_attention.launches
+    with pytest.raises(ValueError):
+        attention.fused_pixelnorm_attention(qkv, 1)
+    assert attention.fused_pixelnorm_attention.launches == before
 
 
 def test_threefry_noise_on_the_card_equals_the_cpu(dev):
