@@ -55,13 +55,32 @@ Phases, each of which exits non-zero on failure:
    from four threads; then, with the cache emptied, the same four one at a
    time, which must agree with the concurrent answers (elevation within
    1 m, biome ids equal on >= 99% of pixels).
-Phases 5 and 6 each zero the launch counts before their requests and read
-them after: attention launches = base-model forwards (latent_init +
-latent_step calls), fused-block launches = 26 x decoder forwards, conv
-launches = 2 x decoder forwards.
+7. bf16 (the ``--dtype bf16`` path, with the kernels' 16-bit forms): the
+   kernel phase's bf16 rows (the 7 fused-block and 4 conv main-path cases and
+   the midblock attention at b1 / b16 / b64; and one fp16 row per kernel),
+   each against its plain version on the same 16-bit inputs (bar 1e-2 in
+   bf16, 2.5e-3 in fp16) and against the plain version in
+   float64 on the card (no rounding: the kernel's error at most 1.25 x the
+   float32 plain version's), with ms, device ms, plain, library (cuDNN's
+   bf16 ``F.conv2d``, SDPA in bf16), FLOPs and bytes at the real element
+   sizes, the bound on the unit the kernel runs (989 TFLOP/s for bf16
+   ``mma``, 495 per TF32 pass) and its share; the decoder forward at 512x512
+   b2 / b16 beside its summed bound; latent_init b64 with and without the
+   attention kernel; the decoder and base U-Nets card vs CPU in bf16 (bar 2e-2
+   relative RMSE) with their launches; and a bf16 Minecraft phase,
+   ``minecraft_api.main([..., "--dtype", "bf16", "--threaded"])`` on the world
+   of phase 6: a cold 256x256 tile, the same again (byte-identical), four
+   adjacent cold tiles at once, with the cold tile's relative RMSE against
+   phase 6's float32 tile.
+Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
+requests and read them after: attention launches = base-model forwards
+(latent_init + latent_step calls), fused-block launches = 26 x decoder
+forwards, conv launches = 2 x decoder forwards, every one in the phase's
+type.
 
-The last lines are a JSON kernel report (launches from the Minecraft
-phase), the card's name and power limit, and {"ok": true, "device": {...}}.
+The last lines are a JSON kernel report (a row per kernel and type:
+launches from the Minecraft phase in that type), the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 import configparser
 import copy
@@ -71,17 +90,27 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1e-4
+# 16-bit kernel vs plain version: about 2.5 steps of the type at the largest value
+KERNEL_TOL16 = {" bf16": 1e-2, " fp16": 2.5e-3}
+ERR16_RATIO = 1.25   # bf16 kernel's float64-oracle error over the plain version's, at most
+UNET_TOL16 = 2e-2    # bf16 U-Net card vs CPU, relative RMSE
 SEED = 20261016
 # NVIDIA H100 SXM peaks (data sheet, dense, at the 700 W limit)
 TC_TF32_FLOPS = 495e12  # TF32 tensor cores
+TC_BF16_FLOPS = 989e12  # bf16 and fp16 tensor cores
 F32_FLOPS = 67e12       # float32 on the CUDA cores
 HBM_BYTES = 3.35e12     # device memory, bytes/s
+# the unit a kernel runs its products on: (passes, peak FLOP/s, name)
+UNITS = {"3xtf32": (3, TC_TF32_FLOPS, "3xTF32 tensor cores"),
+         "bf16": (1, TC_BF16_FLOPS, "16-bit tensor cores"),
+         "f32": (1, F32_FLOPS, "f32 CUDA cores")}
 HEAD_COUT = 8  # conv3x3 runs convs to at most 8 channels on the CUDA cores
 LAUNCHES_PER_FORWARD = {"fused_block": "26/decoder", "conv3x3": "2/decoder",
                         "attention": "1/base"}
@@ -94,6 +123,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, case reported in the JSO
     "attention": (SRC + "attention.cu", "terrain_diffusion_tpu/ops/pallas_attention.py:80",
                   "midblock 8x8 12x64 b64"),
 }
+BF16, FP16 = " bf16", " fp16"  # suffixes of the 16-bit rows' kernel names
 
 
 def fail(msg: str):
@@ -160,19 +190,24 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def bound_ms(flops: float, nbytes: float, tensor_cores: bool):
+def bound_ms(flops: float, nbytes: float, unit: str):
     """The least time the card could take for this work, and what sets it:
     bytes over the memory rate, or operations over the peak of the unit that
-    runs them (three TF32 passes on the tensor cores for a 3xTF32 kernel,
-    float32 on the CUDA cores otherwise)."""
-    t_ops = 3 * flops / TC_TF32_FLOPS if tensor_cores else flops / F32_FLOPS
+    runs them (UNITS: three TF32 passes for a 3xTF32 kernel, one bf16 pass,
+    or float32 on the CUDA cores)."""
+    passes, peak, _ = UNITS[unit]
+    t_ops = passes * flops / peak
     t_bytes = nbytes / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
 def block_work(x, w0, w1, c, wskip=None, x2=None, *, pre_upsample=1, **_):
     """(FLOPs, bytes) of one fused block: both 3x3 convs and the 1x1
-    projection; each input read once, the output written once."""
+    projection; each input read once, the output (in x's type) written once."""
     n, hs, ws, _ = x.shape
     px = n * hs * ws * pre_upsample ** 2
     cin0, cmid, cout = w0.shape[2], w0.shape[3], w1.shape[3]
@@ -180,20 +215,28 @@ def block_work(x, w0, w1, c, wskip=None, x2=None, *, pre_upsample=1, **_):
     if wskip is not None:
         flops += 2 * px * wskip.shape[0] * wskip.shape[1]
     inputs = [t for t in (x, x2, w0, w1, c, wskip) if t is not None]
-    return flops, 4 * (sum(t.numel() for t in inputs) + px * cout)
+    return flops, sum(nbytes(t) for t in inputs) + px * cout * x.element_size()
 
 
 def conv_work(x, w):
     px = x.shape[0] * x.shape[1] * x.shape[2]
     flops = 2 * 9 * px * w.shape[2] * w.shape[3]
-    return flops, 4 * (x.numel() + w.numel() + px * w.shape[3])
+    return flops, nbytes(x) + nbytes(w) + px * w.shape[3] * x.element_size()
 
 
 def attn_work(qkv, heads):
     """QK^T and PV over every head; qkv read once, the output written once."""
     n, h, w, c3 = qkv.shape
     hw, c = h * w, c3 // 3
-    return 2 * 2 * n * hw * hw * c, 4 * (qkv.numel() + n * hw * c)
+    return 2 * 2 * n * hw * hw * c, nbytes(qkv) + n * hw * c * qkv.element_size()
+
+
+def conv_unit(w, dtype) -> str:
+    """The unit conv3x3 runs a conv to w.shape[3] channels on, in dtype
+    (fp16 tensor cores run at the bf16 rate)."""
+    if w.shape[3] <= HEAD_COUT:
+        return "f32"
+    return "3xtf32" if dtype == "float32" else "bf16"
 
 
 def sdpa_inputs(qkv, heads: int, eps: float = 1e-4):
@@ -210,9 +253,14 @@ def kernel_phase(torch, fb, attn, dev):
     import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(SEED)
+    bf16 = torch.bfloat16
 
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    def exact(args):
+        """The arguments in float64 on the card: the plain version's oracle."""
+        return [t.double() if t is not None else None for t in args]
 
     def block_args(n, hs, cx, cout, mode, x2=False, proj=False, up=1):
         cg = 2 * cx if x2 else cx
@@ -228,40 +276,46 @@ def kernel_phase(torch, fb, attn, dev):
                   pre_upsample=up)
         return args, kw
 
-    def block_case(*a, **k):
+    def block_case(*a, dtype=torch.float32, **k):
         args, kw = block_args(*a, **k)
+        if dtype != torch.float32:  # the activations in dtype, weights and c float32
+            args = (args[0].to(dtype), *args[1:5], None if args[5] is None else args[5].to(dtype))
         x, w0, w1 = args[:3]
         n, h, w = x.shape[0], x.shape[1] * kw["pre_upsample"], x.shape[2] * kw["pre_upsample"]
-        # the library yardstick: cuDNN's two float32 3x3 convs of the block
-        # (no single call computes the block), on inputs of their shapes
-        lib_in = [rand(n, h, w, wt.shape[2]).permute(0, 3, 1, 2) for wt in (w0, w1)]
-        lib_w = [wt.permute(3, 2, 0, 1).contiguous() for wt in (w0, w1)]
+        # the library yardstick: cuDNN's two 3x3 convs of the block in its
+        # type (no single call computes the block), on inputs of their shapes
+        lib_in = [rand(n, h, w, wt.shape[2]).to(dtype).permute(0, 3, 1, 2) for wt in (w0, w1)]
+        lib_w = [wt.to(dtype).permute(3, 2, 0, 1).contiguous() for wt in (w0, w1)]
         return dict(run=lambda: fb.fused_block(*args, **kw),
                     ref=lambda: fb.fused_block_reference(*args, **kw),
+                    exact=lambda: fb.fused_block_reference(*exact(args), **kw),
                     library=lambda: [F.conv2d(i, wt, padding=1) for i, wt in zip(lib_in, lib_w)],
-                    work=block_work(*args, **kw), tensor_cores=True)
+                    work=block_work(*args, **kw),
+                    unit="3xtf32" if dtype == torch.float32 else "bf16")
 
-    def conv_case(n, cin, cout):
-        x, wt = rand(n, 512, 512, cin), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
-        xv, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
+    def conv_case(n, cin, cout, dtype=torch.float32):
+        x, wt = rand(n, 512, 512, cin).to(dtype), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        xv, w_oihw = x.permute(0, 3, 1, 2), wt.to(dtype).permute(3, 2, 0, 1).contiguous()
         return dict(run=lambda: fb.conv3x3(x, wt), ref=lambda: fb.conv3x3_reference(x, wt),
+                    exact=lambda: fb.conv3x3_reference(*exact((x, wt))),
                     library=lambda: F.conv2d(xv, w_oihw, padding=1),
-                    work=conv_work(x, wt), tensor_cores=cout > HEAD_COUT)
+                    work=conv_work(x, wt), unit=conv_unit(wt, str(dtype).split(".")[-1]))
 
-    def attn_case(shape, heads):
-        qkv = rand(*shape, scale=3.0)
+    def attn_case(shape, heads, dtype=torch.float32):
+        qkv = rand(*shape, scale=3.0).to(dtype)
         ch = shape[3] // 3 // heads
         path = attn.library_attention_path(ch)
         check(path == attn.attention_path(ch),
               f"ch = {ch}: the library dispatches to {path}, attention_path says "
               f"{attn.attention_path(ch)}")
         # the library yardstick computes less: no pixel norm, no layout change
-        q, k, v = sdpa_inputs(qkv, heads)
+        q, k, v = (t.to(dtype) for t in sdpa_inputs(qkv.float(), heads))
         return dict(run=lambda: attn.fused_pixelnorm_attention(qkv, heads),
                     ref=lambda: attn.pixelnorm_attention_reference(qkv, heads),
+                    exact=lambda: attn.pixelnorm_attention_reference(qkv.double(), heads),
                     library=lambda: F.scaled_dot_product_attention(q, k, v),
-                    work=attn_work(qkv, heads), tensor_cores=path == "tensor_cores",
-                    label=f"[{path}]")
+                    work=attn_work(qkv, heads),
+                    unit="3xtf32" if path == "tensor_cores" else "f32", label=f"[{path}]")
 
     cases = []
     for n in (1, 2):
@@ -289,38 +343,79 @@ def kernel_phase(torch, fb, attn, dev):
               ("attention", "jax test 16x16 2x64 b1", attn_case((1, 16, 16, 384), 2)),
               ("attention", "largest 32x64 3x64 b1", attn_case((1, 32, 64, 576), 3)),
               ("attention", "wide head 8x8 1x400 b1", attn_case((1, 8, 8, 1200), 1))]
+    # the bf16 forms at the main path's shapes
+    cases += [
+        ("fused_block" + BF16, "enc 512x512 64->64 b1", block_case(1, 512, 64, 64, "enc",
+                                                               dtype=bf16)),
+        ("fused_block" + BF16, "enc 512x512 64->64 b2", block_case(2, 512, 64, 64, "enc",
+                                                               dtype=bf16)),
+        ("fused_block" + BF16, "enc 256x256 proj 64->128 b2",
+         block_case(2, 256, 64, 128, "enc", proj=True, dtype=bf16)),
+        ("fused_block" + BF16, "dec 128x128 pre-up 256 b2",
+         block_case(2, 64, 256, 256, "dec", up=2, dtype=bf16)),
+        ("fused_block" + BF16, "dec 512x512 x2-concat 64+64->64 b2",
+         block_case(2, 512, 64, 64, "dec", x2=True, proj=True, dtype=bf16)),
+        ("fused_block" + BF16, "dec 512x512 proj 192->64 b2",
+         block_case(2, 512, 192, 64, "dec", proj=True, dtype=bf16)),
+        ("fused_block" + BF16, "enc 512x512 64->64 b16",
+         block_case(16, 512, 64, 64, "enc", dtype=bf16)),
+    ]
+    cases += [("conv3x3" + BF16, f"{io} conv 512x512 {cin}->{cout} b{n}",
+               conv_case(n, cin, cout, dtype=bf16))
+              for io, cin, cout in (("in", 6, 64), ("out", 64, 1)) for n in (2, 16)]
+    cases += [("attention" + BF16, f"midblock 8x8 12x64 b{n}",
+               attn_case((n, 8, 8, 2304), 12, dtype=bf16)) for n in (1, 16, 64)]
+    fp16 = torch.float16  # the fp16 forms: one main-path row per kernel
+    cases += [("fused_block" + FP16, "enc 512x512 64->64 b2",
+               block_case(2, 512, 64, 64, "enc", dtype=fp16)),
+              ("conv3x3" + FP16, "in conv 512x512 6->64 b2", conv_case(2, 6, 64, dtype=fp16)),
+              ("attention" + FP16, "midblock 8x8 12x64 b64",
+               attn_case((64, 8, 8, 2304), 12, dtype=fp16))]
     rows = []
     for kernel, name, case in cases:
+        suffix = kernel[-len(BF16):] if kernel[-len(BF16):] in (BF16, FP16) else ""
+        half = bool(suffix)
         got = case["run"]()
         torch.cuda.synchronize()
         want = case["ref"]()
-        err_abs = float((got - want).abs().max())
-        rel = err_abs / float(want.abs().max())
+        err_abs = float((got.float() - want.float()).abs().max())
+        rel = err_abs / float(want.float().abs().max())
+        oracle = ""
+        if half:  # both against the unrounded plain version, in float64 on the card
+            ex = case["exact"]()
+            err64, err64_plain = rel_err(got.double(), ex), rel_err(want.double(), ex)
+            oracle = f" float64: kernel {err64:.3e} plain {err64_plain:.3e}"
+            del ex
         ms, plain_ms = time_ms(case["run"]), time_ms(case["ref"])
         lib_ms = time_ms(case["library"]) if case["library"] else None
         device_ms = graph_ms(case["run"])
-        flops, nbytes = case["work"]
-        b_ms, b_by = bound_ms(flops, nbytes, case["tensor_cores"])
+        flops, n_bytes = case["work"]
+        b_ms, b_by = bound_ms(flops, n_bytes, case["unit"])
         f32_ms = flops / F32_FLOPS * 1e3
         label = f"{name} {case.get('label', '')}"
-        print(f"[kernel] {kernel:11s} {label:34s} rel_err={rel:.3e} max_abs_err={err_abs:.3e} "
-              f"kernel={ms:.4f} ms (device {device_ms:.4f} ms) plain={plain_ms:.4f} ms library="
-              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'} | {flops / 1e9:.3f} GFLOP "
-              f"{nbytes / 1e6:.1f} MB bound={b_ms:.4f} ms ({b_by}"
-              f"{', 3xTF32 tensor cores' if case['tensor_cores'] else ', f32 CUDA cores'}) "
-              f"share={b_ms / ms:.1%} (device {b_ms / device_ms:.1%}) "
-              f"f32-cuda-core={f32_ms:.4f} ms "
-              f"({f32_ms / ms:.1%}) launches/forward={LAUNCHES_PER_FORWARD[kernel]}",
-              flush=True)
+        base_kernel = kernel[:len(kernel) - len(suffix)]
+        print(f"[kernel] {kernel:11s} {label:34s} rel_err={rel:.3e} max_abs_err={err_abs:.3e}"
+              f"{oracle} kernel={ms:.4f} ms (device {device_ms:.4f} ms) plain={plain_ms:.4f} ms "
+              f"library={'-' if lib_ms is None else f'{lib_ms:.4f} ms'} | "
+              f"{flops / 1e9:.3f} GFLOP {n_bytes / 1e6:.1f} MB bound={b_ms:.4f} ms ({b_by}, "
+              f"{UNITS[case['unit']][2]}) share={b_ms / ms:.1%} (device {b_ms / device_ms:.1%}) "
+              f"f32-cuda-core={f32_ms:.4f} ms ({f32_ms / ms:.1%}) "
+              f"launches/forward={LAUNCHES_PER_FORWARD[base_kernel]}", flush=True)
+        check(got.dtype == want.dtype, f"{name}: kernel type {got.dtype}, plain {want.dtype}")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(rel < KERNEL_TOL, f"{name}: rel err {rel:.3e} >= {KERNEL_TOL}")
+        tol = KERNEL_TOL16[suffix] if half else KERNEL_TOL
+        check(rel < tol, f"{kernel} {name}: rel err {rel:.3e} >= {tol}")
+        if half:
+            check(err64 <= ERR16_RATIO * err64_plain,
+                  f"{kernel} {name}: {err64:.3e} from the float64 oracle, over {ERR16_RATIO} x "
+                  f"the plain version's {err64_plain:.3e}")
         rows.append(dict(kernel=kernel, case=name, max_abs_err=err_abs, rel_err=rel,
                          ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
         del got, want
     print("[kernel] attention library = F.scaled_dot_product_attention(q, k, v) on pre-normed "
-          "contiguous (N, heads, HW, ch) f32 tensors, TF32 off: it leaves out the pixel norm and "
-          "the layout change", flush=True)
+          "contiguous (N, heads, HW, ch) tensors in the row's type, TF32 off: it leaves out the "
+          "pixel norm and the layout change", flush=True)
     float64_checks(torch, fb, attn, block_args, rand)
     return rows
 
@@ -358,41 +453,49 @@ def float64_checks(torch, fb, attn, block_args, rand):
               f"attention {name}: {rel:.3e} from the float64 oracle, plain {rel_plain:.3e}")
 
 
-def decoder_forward_phase(torch, fb, decoder, dev):
-    """One production-width decoder forward at 512x512, b2 and b16, timed
-    with CUDA events, beside the summed bound of its kernel launches (the
-    shapes recorded from the forward itself)."""
+def decoder_forward_phase(torch, fb, decoder, dev, dtype="float32"):
+    """One production-width decoder forward at 512x512, b2 and b16, in
+    ``dtype``, timed with CUDA events, beside the summed bound of its kernel
+    launches (the shapes recorded from the forward itself)."""
     from terrain_diffusion_tpu_torch.nn import edm_unet, layers
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
 
     g = torch.Generator().manual_seed(SEED + 3)
+    dt = getattr(torch, dtype)
     for n in (2, 16):
-        x = torch.randn((n, 512, 512, 5), generator=g).to(dev)
-        nl = torch.full((n,), 1.2, device=dev)
+        x = torch.randn((n, 512, 512, 5), generator=g).to(dev, dt)
+        nl = torch.full((n,), 1.2, device=dev, dtype=dt)
         calls = []
         fused, conv = layers.fused_block, edm_unet.conv3x3
 
         def rec_block(*a, **k):
-            calls.append((*block_work(*a, **k), True))
+            calls.append((*block_work(*a, **k), "3xtf32" if dtype == "float32" else "bf16"))
             return fused(*a, **k)
 
         def rec_conv(x, w):
-            calls.append((*conv_work(x, w), w.shape[3] > HEAD_COUT))
+            calls.append((*conv_work(x, w), conv_unit(w, dtype)))
             return conv(x, w)
 
         layers.fused_block, edm_unet.conv3x3 = rec_block, rec_conv
+        cuda_lib.reset_launch_counts()
         try:
             with torch.no_grad():
                 decoder(x, nl, [])
         finally:
             layers.fused_block, edm_unet.conv3x3 = fused, conv
         check(len(calls) == 28, f"decoder forward made {len(calls)} kernel calls, not 26 + 2")
+        typed = (fb.fused_block.launches_by_dtype.get(dt, 0),
+                 fb.conv3x3.launches_by_dtype.get(dt, 0))
+        check(typed == (26, 2), f"decoder forward launched {typed} {dtype} kernels, not 26 + 2")
         bound = sum(bound_ms(*call)[0] for call in calls)
         flops = sum(f for f, _, _ in calls)
         with torch.no_grad():
             ms = time_ms(lambda: decoder(x, nl, []), iters=3)
-        print(f"[decoder] forward 512x512 b{n}: {ms:.2f} ms; its 26 + 2 kernel launches: "
-              f"{flops / 1e9:.1f} GFLOP, summed bound {bound:.2f} ms (3xTF32 tensor cores / "
-              f"bytes), f32 CUDA-core figure {flops / F32_FLOPS * 1e3:.2f} ms", flush=True)
+        unit = "3xTF32" if dtype == "float32" else "bf16"
+        print(f"[decoder] forward 512x512 b{n}{'' if dtype == 'float32' else ' ' + dtype}: "
+              f"{ms:.2f} ms; its 26 + 2 kernel launches: {flops / 1e9:.1f} GFLOP, summed bound "
+              f"{bound:.2f} ms ({unit} tensor cores / bytes), f32 CUDA-core figure "
+              f"{flops / F32_FLOPS * 1e3:.2f} ms", flush=True)
         del x
 
 
@@ -502,6 +605,72 @@ def model_phase(torch, np, attn, models, dev):
     check(rel < KERNEL_TOL, f"latent_init with the kernel disagrees with plain: {rel:.3e}")
 
 
+def rrmse(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+
+
+def model_phase_bf16(torch, np, fb, attn, models, dev):
+    """The decoder and base U-Nets in bf16 on the card (the kernels' 16-bit
+    forms) against the same modules in bf16 on the CPU (plain versions),
+    with their launches; then latent_init at bucket 64 in bf16, with the
+    attention kernel and with the plain attention."""
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
+    from terrain_diffusion_tpu_torch.pipeline.world import (SCHED, SD, WorldPipeline,
+                                                            compute_sigmas)
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 4)
+    decoder, base = models[2], models[1]
+    # at a 128x128 input only the top level's blocks reach the kernels'
+    # 128 x 128 pixels (the 512x512 forward of the decoder phase runs 26)
+    top = f"{decoder.config.image_size}x{decoder.config.image_size}_"
+    n_top = sum(1 for name, kind, *_ in decoder.enc_plan + decoder.dec_plan
+                if kind == "block" and name.startswith(top))
+    for name, model, x, cond, want_launches in (
+            ("decoder 128x128", decoder, torch.randn((1, 128, 128, 5), generator=g), [],
+             {"fused_block": n_top, "conv3x3": 2}),
+            ("base 64x64 (attention kernel)", base, torch.randn((1, 64, 64, 5), generator=g),
+             [torch.randn((1, 58), generator=g)], {"attention": 1})):
+        nl = torch.full((1,), 0.9)
+        cuda_lib.reset_launch_counts()
+        with torch.no_grad():
+            got = model(x.to(dev, bf16), nl.to(dev, bf16), [c.to(dev, bf16) for c in cond]).cpu()
+            launched = {"fused_block": fb.fused_block.launches_by_dtype.get(bf16, 0),
+                        "conv3x3": fb.conv3x3.launches_by_dtype.get(bf16, 0),
+                        "attention": attn.fused_pixelnorm_attention.launches_by_dtype.get(bf16, 0)}
+            t0 = time.perf_counter()
+            want = copy.deepcopy(model).cpu()(x.to(bf16), nl.to(bf16), [c.to(bf16) for c in cond])
+            cpu_s = time.perf_counter() - t0
+        err = rrmse(got, want)
+        print(f"[model bf16] {name} card vs CPU: rel RMSE {err:.3e} (CPU forward {cpu_s:.1f} s), "
+              f"bf16 launches {launched}", flush=True)
+        check(got.dtype == bf16 and bool(torch.isfinite(got.float()).all()) and err < UNET_TOL16,
+              f"bf16 {name} on the card disagrees with the CPU: {err:.3e}")
+        check(all(launched[k] == v for k, v in want_launches.items()),
+              f"bf16 {name}: launches {launched}, expected {want_launches}")
+
+    pipe = WorldPipeline(seed=SEED, device=dev, log_mode="info", dtype="bf16").set_models(*models)
+    t_init = float(np.arctan(float(compute_sigmas(SCHED, 20)[0]) / SD))
+    init_f = pipe._latent_fn(t_init, 5819, with_prev=False)
+    ctxs = np.stack([np.zeros(64, np.int64), np.arange(64) // 8, np.arange(64) % 8], axis=1)
+    coarse = torch.randn((64, 7, 4, 4), generator=g).to(dev)
+    coarse[:, -1] = 1.0
+    out, turns = {}, {"pallas": [], "xla": []}
+    with torch.no_grad():
+        for impl in ("pallas", "xla", "xla", "pallas"):
+            set_attention_impl(base, impl)
+            out[impl] = init_f(ctxs, coarse)
+            turns[impl].append(time_ms(lambda: init_f(ctxs, coarse), iters=3))
+    set_attention_impl(base, "pallas")
+    err = rrmse(out["pallas"][:, :-1], out["xla"][:, :-1])
+    print(f"[latent bf16] latent_init b64 in bf16: attention kernel {min(turns['pallas']):.1f} "
+          f"ms, plain attention {min(turns['xla']):.1f} ms (turns: kernel "
+          f"{', '.join(f'{t:.1f}' for t in turns['pallas'])}; plain "
+          f"{', '.join(f'{t:.1f}' for t in turns['xla'])}), rel RMSE {err:.3e}", flush=True)
+    check(err < UNET_TOL16, f"bf16 latent_init with the kernel disagrees with plain: {err:.3e}")
+
+
 def http_get(port: int, path: str):
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=900) as r:
         return r.status, dict(r.headers), r.read()
@@ -529,9 +698,10 @@ def stage_calls(pipe) -> dict:
     return {k: v[0] for k, v in pipe.stage_timings.items()}
 
 
-def check_launches(torch, cuda_lib, fb, attn, pipe, calls_before, label) -> dict:
+def check_launches(torch, cuda_lib, fb, attn, pipe, calls_before, label, dtype=None) -> dict:
     """Launch counts since the last reset against the model forwards the
-    pipeline's stages ran."""
+    pipeline's stages ran; with ``dtype``, every launch must be of that
+    type's kernels."""
     calls = stage_calls(pipe)
     n = {k: calls.get(k, 0) - calls_before.get(k, 0)
          for k in ("latent_init", "latent_step", "decoder")}
@@ -543,6 +713,12 @@ def check_launches(torch, cuda_lib, fb, attn, pipe, calls_before, label) -> dict
     check(n_base > 0 and n_dec > 0, f"{label}: no base or decoder forward ran")
     want = {"fused_block": 26 * n_dec, "conv3x3": 2 * n_dec, "attention": n_base}
     check(launches == want, f"{label}: launch counts {launches} != {want}")
+    if dtype is not None:
+        typed = {"fused_block": fb.fused_block, "conv3x3": fb.conv3x3,
+                 "attention": attn.fused_pixelnorm_attention}
+        typed = {k: fn.launches_by_dtype.get(dtype, 0) for k, fn in typed.items()}
+        print(f"[{label}] launches of the {dtype} kernels {typed}", flush=True)
+        check(typed == want, f"{label}: {dtype} launch counts {typed} != {want}")
     for stage, v in pipe.timing_summary().items():
         print(f"[{label}] stage {stage:16s} calls={v['calls']:4d} "
               f"total={v['total_s'] * 1000:.1f} ms mean={v['mean_ms']:.2f} ms", flush=True)
@@ -593,17 +769,17 @@ def api_phase(torch, np, cuda_lib, fb, attn, models, dev):
     return launches
 
 
-def start_minecraft_server(mc, world_dir: str, port: int) -> threading.Thread:
-    """``minecraft_api.main`` as a user runs it, in a thread that serves
-    until ``mc.app.server.shutdown()``; returns the thread once /health
-    answers."""
+def start_minecraft_server(mc, world_dir: str, port: int, *extra) -> threading.Thread:
+    """``minecraft_api.main`` as a user runs it (``extra`` arguments
+    appended), in a thread that serves until ``mc.app.server.shutdown()``;
+    returns the thread once /health answers."""
     errors = []
 
     def serve():
         try:
             mc.main([world_dir, "--device", "cuda", "--threaded", "--host", "127.0.0.1",
                      "--port", str(port), "--seed", str(SEED),
-                     "--batch-size", "1,2,4,8,16,32,64", "--log-mode", "info"])
+                     "--batch-size", "1,2,4,8,16,32,64", "--log-mode", "info", *extra])
         except BaseException as e:  # noqa: BLE001 - reported below
             errors.append(e)
 
@@ -623,33 +799,17 @@ def start_minecraft_server(mc, world_dir: str, port: int) -> threading.Thread:
     return thread
 
 
-def minecraft_phase(torch, np, cuda_lib, fb, attn, models, dev):
-    """The Minecraft server through its entry point: the models saved as a
-    world directory, loaded by ``minecraft_api.main`` with --threaded
-    (coalesced serving), WorldPipeline at its defaults (threefry, T=2)."""
+def free_port() -> int:
     import socket
-    import tempfile
-
-    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
-    from terrain_diffusion_tpu_torch.serving import minecraft_api as mc
-    from terrain_diffusion_tpu_torch.serving.coalesce import CoalescedPipeline
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_dir:
-        t0 = time.perf_counter()
-        WorldPipeline(device=dev).set_models(*models).save_pretrained(world_dir)
-        print(f"[minecraft] world saved in {(time.perf_counter() - t0) * 1000:.1f} ms",
-              flush=True)
-        t0 = time.perf_counter()
-        server = start_minecraft_server(mc, world_dir, port)
-        print(f"[minecraft] server up (weights loaded, bound) in "
-              f"{(time.perf_counter() - t0) * 1000:.1f} ms", flush=True)
-    world = mc._PIPELINE
-    check(isinstance(world, CoalescedPipeline), "threaded Minecraft serving is not coalesced")
-    check(world.noise_mode == "threefry" and world.T == 2 and world.device.type == "cuda",
-          "the world does not run at the defaults on the card")
+        return s.getsockname()[1]
+
+
+def tile_getter(np, mc, port):
+    """get_tile(path) -> (wall s, body, elevation, biome ids) of a 256x256
+    Minecraft /terrain answer, checked."""
     biome_ids = set(mc.BIOME_ID.values()) | {41, 44, 46, 48}  # + the ocean ids
 
     def get_tile(path):
@@ -665,6 +825,33 @@ def minecraft_phase(torch, np, cuda_lib, fb, attn, models, dev):
               f"{path}: elevation saturated or constant")
         check(set(np.unique(biome).tolist()) <= biome_ids, f"{path}: unknown biome ids")
         return wall, body, elev, biome
+
+    return get_tile
+
+
+def minecraft_phase(torch, np, cuda_lib, fb, attn, models, dev, world_dir):
+    """The Minecraft server through its entry point: the models saved as a
+    world directory, loaded by ``minecraft_api.main`` with --threaded
+    (coalesced serving), WorldPipeline at its defaults (threefry, T=2).
+    Returns the launches and the first tile's body."""
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+    from terrain_diffusion_tpu_torch.serving import minecraft_api as mc
+    from terrain_diffusion_tpu_torch.serving.coalesce import CoalescedPipeline
+
+    port = free_port()
+    t0 = time.perf_counter()
+    WorldPipeline(device=dev).set_models(*models).save_pretrained(world_dir)
+    print(f"[minecraft] world saved in {(time.perf_counter() - t0) * 1000:.1f} ms",
+          flush=True)
+    t0 = time.perf_counter()
+    server = start_minecraft_server(mc, world_dir, port)
+    print(f"[minecraft] server up (weights loaded, bound) in "
+          f"{(time.perf_counter() - t0) * 1000:.1f} ms", flush=True)
+    world = mc._PIPELINE
+    check(isinstance(world, CoalescedPipeline), "threaded Minecraft serving is not coalesced")
+    check(world.noise_mode == "threefry" and world.T == 2 and world.device.type == "cuda",
+          "the world does not run at the defaults on the card")
+    get_tile = tile_getter(np, mc, port)
 
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
@@ -711,6 +898,68 @@ def minecraft_phase(torch, np, cuda_lib, fb, attn, models, dev):
               f"biome ids equal on {same_biome:.4f}", flush=True)
         check(d_elev <= 1 and same_biome >= 0.99,
               f"{path}: concurrent and sequential responses differ")
+    mc.app.server.shutdown()
+    server.join(timeout=60)
+    world.close()
+    return launches, bodies[0]
+
+
+def minecraft_phase_bf16(torch, np, cuda_lib, fb, attn, dev, world_dir, f32_tile):
+    """The bf16 Minecraft server: ``minecraft_api.main(... --dtype bf16
+    --threaded)`` on the world of the float32 phase; a cold tile, the same
+    again, four adjacent cold tiles at once; the cold tile against the float32
+    phase's."""
+    from terrain_diffusion_tpu_torch.serving import minecraft_api as mc
+
+    port = free_port()
+    t0 = time.perf_counter()
+    server = start_minecraft_server(mc, world_dir, port, "--dtype", "bf16")
+    print(f"[minecraft bf16] server up (weights loaded, bound) in "
+          f"{(time.perf_counter() - t0) * 1000:.1f} ms", flush=True)
+    world = mc._PIPELINE
+    check(world.compute_dtype == torch.bfloat16 and world.device.type == "cuda",
+          "the bf16 world does not run in bf16 on the card")
+    get_tile = tile_getter(np, mc, port)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    before = stage_calls(world)
+    path = "/terrain?i1=0&j1=0&i2=256&j2=256"
+    bodies = []
+    for label in ("cold", "again"):
+        wall, body, elev, biome = get_tile(path)
+        bodies.append(body)
+        print(f"[minecraft bf16] GET {path} ({label}): {wall * 1000:.1f} ms, elev "
+              f"[{elev.min()}, {elev.max()}] m, {len(np.unique(biome))} biomes", flush=True)
+    check(bodies[0] == bodies[1], "repeated bf16 Minecraft /terrain request is not byte-identical")
+    n = 256 * 256
+    elev16 = np.frombuffer(bodies[0][:2 * n], "<i2").astype(np.float64)
+    elev32 = np.frombuffer(f32_tile[:2 * n], "<i2").astype(np.float64)
+    err = float(np.sqrt(np.mean((elev16 - elev32) ** 2)) / np.sqrt(np.mean(elev32 ** 2)))
+    same_biome = float(np.mean(np.frombuffer(bodies[0][2 * n:], "<i2")
+                               == np.frombuffer(f32_tile[2 * n:], "<i2")))
+    print(f"[minecraft bf16] cold tile vs the float32 phase's: elevation rel RMSE {err:.3e}, "
+          f"max|diff| {np.abs(elev16 - elev32).max():.0f} m, biome ids equal on "
+          f"{same_biome:.4f}", flush=True)
+    check(bool(np.isfinite(err)), "bf16 tile: non-finite elevation error")
+    paths = [f"/terrain?i1={i}&j1={j}&i2={i + 256}&j2={j + 256}"
+             for i in (2048, 2304) for j in (-512, -256)]
+    results = [None] * 4
+
+    def client(k):
+        results[k] = get_tile(paths[k])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(all(r is not None for r in results), "a concurrent bf16 request failed")
+    print(f"[minecraft bf16] 4 concurrent adjacent tiles: {wall * 1000:.1f} ms "
+          f"(each {', '.join(f'{r[0] * 1000:.1f}' for r in results)} ms)", flush=True)
+    launches = check_launches(torch, cuda_lib, fb, attn, world, before, "minecraft bf16",
+                              dtype=torch.bfloat16)
     mc.app.server.shutdown()
     server.join(timeout=60)
     world.close()
@@ -769,21 +1018,28 @@ def main():
     timed("model", lambda: model_phase(torch, np, attn, models, dev))
     timed("decoder forward", lambda: decoder_forward_phase(torch, fb, models[2], dev))
     timed("api", lambda: api_phase(torch, np, cuda_lib, fb, attn, models, dev))
-    launches = timed("minecraft", lambda: minecraft_phase(torch, np, cuda_lib, fb, attn,
-                                                          models, dev))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_dir:
+        launches, f32_tile = timed("minecraft", lambda: minecraft_phase(
+            torch, np, cuda_lib, fb, attn, models, dev, world_dir))
+        timed("bf16 model", lambda: model_phase_bf16(torch, np, fb, attn, models, dev))
+        timed("bf16 decoder forward", lambda: decoder_forward_phase(
+            torch, fb, models[2], dev, "bfloat16"))
+        launches16 = timed("bf16 minecraft", lambda: minecraft_phase_bf16(
+            torch, np, cuda_lib, fb, attn, dev, world_dir, f32_tile))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
-    for kernel, (source, replaces, case) in KERNELS.items():
-        mine = [r for r in rows if r["kernel"] == kernel]
-        main_case = next(r for r in mine if r["case"] == case)
-        report.append({"name": kernel, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": launches[kernel],
-                       "max_abs_err": max(r["max_abs_err"] for r in mine),
-                       "ms": main_case["ms"], "device_ms": main_case["device_ms"],
-                       "plain_ms": main_case["plain_ms"],
-                       "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-                       "library_ms": main_case["library_ms"], "case": case})
+    for suffix, counts in (("", launches), (BF16, launches16)):
+        for kernel, (source, replaces, case) in KERNELS.items():
+            mine = [r for r in rows if r["kernel"] == kernel + suffix]
+            main_case = next(r for r in mine if r["case"] == case)
+            report.append({"name": kernel + suffix.replace(" ", "_"), "route": "cuda",
+                           "source": source, "replaces": replaces, "launches": counts[kernel],
+                           "max_abs_err": max(r["max_abs_err"] for r in mine),
+                           "ms": main_case["ms"], "device_ms": main_case["device_ms"],
+                           "plain_ms": main_case["plain_ms"],
+                           "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+                           "library_ms": main_case["library_ms"], "case": case})
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -78,6 +78,16 @@
 // Precision: the JAX f32 path is exact float32 and the parity bar is 1e-4;
 // the tensor-core path's 3xTF32 drops only small * small (~2^-22 relative),
 // and tests/test_torch_split_tf32.py models its arithmetic on the CPU.
+//
+// bf16 / fp16 (the Pallas kernel widens qkv to float32 and writes
+// qkv.dtype): pixelnorm_attention_tc<CH, E> loads each chunk as 16-byte
+// words of 8 values, widens them to float32 (exact) as it fills the same
+// padded tiles, runs the pixel norm, the softmax and both 3xTF32 products as
+// for float32, and rounds the output once.  The loads are synchronous
+// (cp.async copies bytes and cannot widen).  At the midblock's shapes it
+// stays bound by its bytes, now 2 a value (25 MB at batch 64: 7.5 us at
+// 3.35 TB/s; the products' three TF32 passes, 4.9 us).  Only the
+// tensor-core widths take 16 bits; the CUDA-core kernel is float32 only.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -247,17 +257,36 @@ struct TcAttn {
 };
 
 // Copies the 64 pixels of chunk c of this head into a raw tile (zeros past HW).
-template <int CH>
-__device__ __forceinline__ void load_chunk(const float* __restrict__ head_base, size_t pix,
+// float32: 16-byte cp.async words.  16-bit E: 16-byte words of 8 values,
+// loaded, widened to float32 (exact) and stored as two float4, synchronously
+// (cp.async copies bytes and cannot widen).
+template <int CH, class E>
+__device__ __forceinline__ void load_chunk(const E* __restrict__ head_base, size_t pix,
                                            int hw, int c, float* dst) {
   using A = TcAttn<CH>;
   const int p0 = c * TC_KT;
+  if constexpr (std::is_same<E, float>::value) {
 #pragma unroll 1
-  for (int i = threadIdx.x; i < TC_KT * A::WORDS; i += TC_THREADS) {
-    const int r = i / A::WORDS, w = i - r * A::WORDS;
-    const bool full = p0 + r < hw;
-    cp_async16(dst + r * A::RS + 4 * w, head_base + (size_t)(full ? p0 + r : 0) * pix + 4 * w,
-               full);
+    for (int i = threadIdx.x; i < TC_KT * A::WORDS; i += TC_THREADS) {
+      const int r = i / A::WORDS, w = i - r * A::WORDS;
+      const bool full = p0 + r < hw;
+      cp_async16(dst + r * A::RS + 4 * w,
+                 head_base + (size_t)(full ? p0 + r : 0) * pix + 4 * w, full);
+    }
+  } else {
+    constexpr int WORDS8 = 3 * CH / 8;  // 16-byte words of one pixel's slice
+#pragma unroll 1
+    for (int i = threadIdx.x; i < TC_KT * WORDS8; i += TC_THREADS) {
+      const int r = i / WORDS8, w = i - r * WORDS8;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (p0 + r < hw)
+        raw = __ldg(reinterpret_cast<const uint4*>(head_base + (size_t)(p0 + r) * pix + 8 * w));
+      const float2 a = unpack2(raw.x, (E*)nullptr), b = unpack2(raw.y, (E*)nullptr);
+      const float2 c2 = unpack2(raw.z, (E*)nullptr), d = unpack2(raw.w, (E*)nullptr);
+      float4* out = reinterpret_cast<float4*>(dst + r * A::RS + 8 * w);
+      out[0] = make_float4(a.x, a.y, b.x, b.y);
+      out[1] = make_float4(c2.x, c2.y, d.x, d.y);
+    }
   }
 }
 
@@ -317,9 +346,10 @@ __device__ __forceinline__ void mma3_add(float (*acc)[4], const uint32_t (&ab)[4
 // Two blocks per SM cap a thread at 128 registers, which ch = 64 (32
 // output accumulators a lane) cannot keep without spilling: it runs one
 // block of 8 warps per SM.
-template <int CH>
+// E: float32, or the 16-bit type of a bf16 / fp16 qkv and output.
+template <int CH, class E>
 __global__ void __launch_bounds__(TC_THREADS, CH < 64 ? 2 : 1)
-pixelnorm_attention_tc(const float* __restrict__ qkv, float* __restrict__ out, int hw,
+pixelnorm_attention_tc(const E* __restrict__ qkv, E* __restrict__ out, int hw,
                        int heads, float eps) {
   using A = TcAttn<CH>;
   extern __shared__ float4 smem_tc[];
@@ -333,16 +363,16 @@ pixelnorm_attention_tc(const float* __restrict__ qkv, float* __restrict__ out, i
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int C = heads * CH;
   const size_t pix = 3 * (size_t)C;
-  const float* head_base = qkv + (size_t)n * hw * pix + (size_t)head * 3 * CH;
+  const E* head_base = qkv + (size_t)n * hw * pix + (size_t)head * 3 * CH;
   const int y = blockIdx.y;
   const float norm_scale = 1.0f / sqrtf((float)CH);
   const int r0 = (warp & 3) * 16 + g;  // this lane's query rows: r0 and r0 + 8
   const int k0 = (warp >> 2) * 32;     // this warp's half of each chunk's keys
 
   // step i consumes chunk y + i (mod nc): slot 0 at step 0, then 1, 2, 1, ...
-  load_chunk<CH>(head_base, pix, hw, y, tiles);
+  load_chunk<CH, E>(head_base, pix, hw, y, tiles);
   cp_async_commit();
-  if (nc > 1) load_chunk<CH>(head_base, pix, hw, y + 1 < nc ? y + 1 : 0, tiles + A::TILE);
+  if (nc > 1) load_chunk<CH, E>(head_base, pix, hw, y + 1 < nc ? y + 1 : 0, tiles + A::TILE);
   cp_async_commit();
 
   const float* qt = tiles + r0 * A::RS + 3 * t;  // q of rows r0 / r0 + 8, channel t
@@ -459,7 +489,7 @@ pixelnorm_attention_tc(const float* __restrict__ qkv, float* __restrict__ out, i
     __syncthreads();  // every warp is done with this chunk's slot and scales
     if (i + 2 < nc) {  // into the ring slot chunk i leaves (slot 2 after step 0)
       const int c2 = y + i + 2 < nc ? y + i + 2 : y + i + 2 - nc;
-      load_chunk<CH>(head_base, pix, hw, c2, tiles + (1 + ((i + 1) & 1)) * A::TILE);
+      load_chunk<CH, E>(head_base, pix, hw, c2, tiles + (1 + ((i + 1) & 1)) * A::TILE);
     }
     cp_async_commit();
   }
@@ -498,7 +528,7 @@ pixelnorm_attention_tc(const float* __restrict__ qkv, float* __restrict__ out, i
 
   // O / l, stored from the fragments
   const int q0 = y * TC_KT;
-  float* out_base = out + ((size_t)n * hw + q0) * C + (size_t)head * CH + 2 * t;
+  E* out_base = out + ((size_t)n * hw + q0) * C + (size_t)head * CH + 2 * t;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_run[h];
@@ -507,26 +537,30 @@ pixelnorm_attention_tc(const float* __restrict__ qkv, float* __restrict__ out, i
     const int row = r0 + 8 * h;
     if (q0 + row < hw) {
 #pragma unroll
-      for (int j = 0; j < A::NT; ++j)
-        *reinterpret_cast<float2*>(out_base + (size_t)row * C + 8 * j) =
-            make_float2(o[j][2 * h] / l, o[j][2 * h + 1] / l);
+      for (int j = 0; j < A::NT; ++j) {
+        E* dst = out_base + (size_t)row * C + 8 * j;
+        if constexpr (std::is_same<E, float>::value)
+          *reinterpret_cast<float2*>(dst) = make_float2(o[j][2 * h] / l, o[j][2 * h + 1] / l);
+        else  // rounded once, to the type of qkv
+          *reinterpret_cast<uint32_t*>(dst) = pack2<E>(o[j][2 * h] / l, o[j][2 * h + 1] / l);
+      }
     }
   }
 }
 
-template <int CH>
-cudaError_t launch_attention_tc(const float* qkv, float* out, int n, int hw, int heads,
+template <int CH, class E>
+cudaError_t launch_attention_tc(const E* qkv, E* out, int n, int hw, int heads,
                                 float eps, cudaStream_t stream) {
   using A = TcAttn<CH>;
   static const cudaError_t attr = cudaFuncSetAttribute(  // once per instantiation
-      pixelnorm_attention_tc<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pixelnorm_attention_tc<CH, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)A::smem_bytes(3));
   if (attr != cudaSuccess) return attr;
   if (reinterpret_cast<uintptr_t>(qkv) & 15) return cudaErrorMisalignedAddress;  // 16-byte copies
   const int nc = (hw + TC_KT - 1) / TC_KT;
   if (nc > 65535) return cudaErrorInvalidValue;
   dim3 grid(n * heads, nc);
-  pixelnorm_attention_tc<CH><<<grid, TC_THREADS, A::smem_bytes(nc), stream>>>(
+  pixelnorm_attention_tc<CH, E><<<grid, TC_THREADS, A::smem_bytes(nc), stream>>>(
       qkv, out, hw, heads, eps);
   return cudaGetLastError();
 }
@@ -538,22 +572,41 @@ cudaError_t launch_attention_tc(const float* qkv, float* out, int n, int hw, int
 // the same rule for the CPU; the card tests and chip_smoke.py hold the two equal.
 extern "C" int tdt_attention_path(int ch) { return ch == 16 || ch == 32 || ch == 64; }
 
-extern "C" int tdt_pixelnorm_attention(const float* qkv, float* out, int n, int hw,
-                                       int heads, int ch, float eps, void* stream) {
+// dtype (tdt::DT_*): float32 qkv and output, any width; or a bf16 / fp16
+// qkv and output (the Pallas kernel widens qkv to float32 and writes
+// qkv.dtype), at the tensor-core widths only: pixelnorm_attention_tc<CH, E>
+// widens each 16-bit value to float32 as it fills its tiles, runs the pixel
+// norm, the softmax and both 3xTF32 products as for float32, and rounds the
+// output once.  A 16-bit qkv of another width is refused.
+extern "C" int tdt_pixelnorm_attention(const void* qkv, void* out, int n, int hw, int heads,
+                                       int ch, float eps, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || hw <= 0 || heads <= 0 || ch <= 0) return (int)cudaErrorInvalidValue;
-  if (tdt_attention_path(ch)) {
-    if (ch == 16) return (int)tdt::launch_attention_tc<16>(qkv, out, n, hw, heads, eps, s);
-    if (ch == 32) return (int)tdt::launch_attention_tc<32>(qkv, out, n, hw, heads, eps, s);
-    return (int)tdt::launch_attention_tc<64>(qkv, out, n, hw, heads, eps, s);
+  if (dtype == tdt::DT_F32) {
+    const float* q = static_cast<const float*>(qkv);
+    float* o = static_cast<float*>(out);
+    if (tdt_attention_path(ch)) {
+      if (ch == 16) return (int)tdt::launch_attention_tc<16, float>(q, o, n, hw, heads, eps, s);
+      if (ch == 32) return (int)tdt::launch_attention_tc<32, float>(q, o, n, hw, heads, eps, s);
+      return (int)tdt::launch_attention_tc<64, float>(q, o, n, hw, heads, eps, s);
+    }
+    if (tdt::attn_smem_floats(64, ch) * sizeof(float) <= tdt::kMaxSmem)
+      return (int)tdt::launch_attention<64>(q, o, n, hw, heads, ch, eps, s);
+    if (tdt::attn_smem_floats(32, ch) * sizeof(float) <= tdt::kMaxSmem)
+      return (int)tdt::launch_attention<32>(q, o, n, hw, heads, ch, eps, s);
+    if (tdt::attn_smem_floats(16, ch) * sizeof(float) <= tdt::kMaxSmem)
+      return (int)tdt::launch_attention<16>(q, o, n, hw, heads, ch, eps, s);
+    if (tdt::attn_smem_floats(8, ch) * sizeof(float) <= tdt::kMaxSmem)
+      return (int)tdt::launch_attention<8>(q, o, n, hw, heads, ch, eps, s);
+    return (int)cudaErrorInvalidValue;
   }
-  if (tdt::attn_smem_floats(64, ch) * sizeof(float) <= tdt::kMaxSmem)
-    return (int)tdt::launch_attention<64>(qkv, out, n, hw, heads, ch, eps, s);
-  if (tdt::attn_smem_floats(32, ch) * sizeof(float) <= tdt::kMaxSmem)
-    return (int)tdt::launch_attention<32>(qkv, out, n, hw, heads, ch, eps, s);
-  if (tdt::attn_smem_floats(16, ch) * sizeof(float) <= tdt::kMaxSmem)
-    return (int)tdt::launch_attention<16>(qkv, out, n, hw, heads, ch, eps, s);
-  if (tdt::attn_smem_floats(8, ch) * sizeof(float) <= tdt::kMaxSmem)
-    return (int)tdt::launch_attention<8>(qkv, out, n, hw, heads, ch, eps, s);
-  return (int)cudaErrorInvalidValue;
+  if (!tdt_attention_path(ch)) return (int)cudaErrorInvalidValue;
+  return (int)tdt::by_dtype(dtype, [&](auto* e) {
+    using E = std::remove_pointer_t<decltype(e)>;
+    const E* q = static_cast<const E*>(qkv);
+    E* o = static_cast<E*>(out);
+    if (ch == 16) return tdt::launch_attention_tc<16, E>(q, o, n, hw, heads, eps, s);
+    if (ch == 32) return tdt::launch_attention_tc<32, E>(q, o, n, hw, heads, eps, s);
+    return tdt::launch_attention_tc<64, E>(q, o, n, hw, heads, eps, s);
+  });
 }

@@ -22,11 +22,29 @@
 // The 1-pixel halo is staged once per tile in shared memory (the TPU kernel
 // carried it between sequential grid steps; CUDA blocks run in no order),
 // and the image border is a bounds check instead of a row mask.
+//
+// bf16 / fp16 (the Pallas kernel on a 16-bit x: MXU passes at
+// Precision.DEFAULT, output in x.dtype): x, the weight and y are 16-bit,
+// the sums float32, the output rounded once.  The input conv runs the 16-bit
+// core's one bf16 mma.sync pass in K chunks of 8 channels (m16n8k8; its 6
+// channels staged as 4-byte pairs), and stays bound by its output bytes, now
+// 2 bytes a value (33.6 MB for one 512x512 tile); the head reads bf16, sums
+// float32 FMAs on the CUDA cores and is bound by its input bytes.
 #include "conv3x3.cuh"
 
-extern "C" int tdt_conv3x3(const float* x, const float* w, float* y, int N,
-                           int H, int W, int Cin, int Cout, void* stream) {
+// dtype (tdt::DT_*): float32 x, y and HWIO weight; or bf16 / fp16 x, y and
+// weight, the weight laid out (9, Cout, Cin) (the 16-bit form above).
+extern "C" int tdt_conv3x3(const void* x, const void* w, void* y, int N, int H, int W,
+                           int Cin, int Cout, int dtype, void* stream) {
   tdt::EpiArgs epi = {};
-  return (int)tdt::launch_conv<3, tdt::IN_NONE, tdt::EPI_NONE>(
-      x, w, y, N, H, W, Cin, Cout, epi, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == tdt::DT_F32)
+    return (int)tdt::launch_conv<3, tdt::IN_NONE, tdt::EPI_NONE>(
+        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), N,
+        H, W, Cin, Cout, epi, s);
+  return (int)tdt::by_dtype(dtype, [&](auto* e) {
+    using E = std::remove_pointer_t<decltype(e)>;
+    return tdt::launch_conv_h<3, E, false, false, tdt::IN_NONE, tdt::EPI_NONE>(
+        x, static_cast<const E*>(w), y, N, H, W, Cin, Cout, epi, s);
+  });
 }

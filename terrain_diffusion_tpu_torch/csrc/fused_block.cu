@@ -29,6 +29,12 @@
 // devices (carried VMEM halo, tile-row picker, MXU tap packing, row masks,
 // batch cutover) are gone: halos are staged per block and the image border
 // is a bounds check.
+//
+// bf16 / fp16 (the Pallas kernel with compute_dtype = x.dtype): the same
+// four launches on the 16-bit core of conv3x3.cuh, rounding where
+// _block_body rounds (see the entry points below).  Bound by the 16-bit
+// tensor cores: FLOPs / 989 TFLOP/s, one pass; xs, h and the output move at
+// 4, 2 and 2 bytes a value.
 #include "conv3x3.cuh"
 
 namespace tdt {
@@ -38,8 +44,10 @@ constexpr int PRO_PIX = 8;  // pixels per gather block
 // out[p] = norm?(gather(p)) for each output pixel p of (N, H, W).
 // gather: x2 == nullptr -> x scaled by s1 (x at half resolution when
 // pre_up); else concat(x * s1, x2 * s2) along channels.
+// x and x2 are float32 or the 16-bit type of the block (TI); xs is float32
+template <class TI>
 __global__ void __launch_bounds__(256)
-block_gather_kernel(const float* __restrict__ x, const float* __restrict__ x2,
+block_gather_kernel(const TI* __restrict__ x, const TI* __restrict__ x2,
                     float s1, float s2, int pre_up, int norm, float* __restrict__ out,
                     int N, int H, int W, int Cx) {
   extern __shared__ float smem[];
@@ -63,7 +71,7 @@ block_gather_kernel(const float* __restrict__ x, const float* __restrict__ x2,
       const int xx = (int)(pix % W);
       const long src = ((long)n * Hs + (pre_up ? yy / 2 : yy)) * Ws +
                        (pre_up ? xx / 2 : xx);
-      v = c < Cx ? x[src * Cx + c] * s1 : x2[src * Cx + (c - Cx)] * s2;
+      v = c < Cx ? to_f32(x[src * Cx + c]) * s1 : to_f32(x2[src * Cx + (c - Cx)]) * s2;
     }
     s_in[i] = v;
   }
@@ -93,55 +101,121 @@ block_gather_kernel(const float* __restrict__ x, const float* __restrict__ x2,
 
 }  // namespace tdt
 
-extern "C" int tdt_block_gather(const float* x, const float* x2, float s1, float s2,
-                                int pre_up, int norm, float* out, int N, int H, int W,
-                                int Cx, void* stream) {
+namespace tdt {
+
+template <class TI>
+cudaError_t launch_gather(const TI* x, const TI* x2, float s1, float s2, int pre_up, int norm,
+                          float* out, int N, int H, int W, int Cx, cudaStream_t stream) {
   const int Cg = x2 ? 2 * Cx : Cx;
-  const size_t smem = sizeof(float) * (tdt::PRO_PIX * Cg + tdt::PRO_PIX);
+  const size_t smem = sizeof(float) * (PRO_PIX * Cg + PRO_PIX);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tdt::block_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+        block_gather_kernel<TI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
   }
   const long total = (long)N * H * W;
-  const unsigned blocks = (unsigned)((total + tdt::PRO_PIX - 1) / tdt::PRO_PIX);
-  tdt::block_gather_kernel<<<blocks, 256, smem, (cudaStream_t)stream>>>(
-      x, x2, s1, s2, pre_up, norm, out, N, H, W, Cx);
-  return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((total + PRO_PIX - 1) / PRO_PIX);
+  block_gather_kernel<TI><<<blocks, 256, smem, stream>>>(x, x2, s1, s2, pre_up, norm, out, N,
+                                                         H, W, Cx);
+  return cudaGetLastError();
 }
 
-// out = x @ wskip: the 1x1 projection, as the tensor-core core with one tap
-extern "C" int tdt_block_proj(const float* x, const float* wskip, float* out, int N,
-                              int H, int W, int Cin, int Cout, void* stream) {
+}  // namespace tdt
+
+// Every entry point takes the block's dtype code (tdt::DT_*).  float32: all
+// tensors float32, weights HWIO / (Cin, Cout).  bf16 / fp16, rounding where
+// the JAX kernel rounds (pallas_block.py::_block_body with compute_dtype =
+// x.dtype): the gather reads the 16-bit x / x2 and writes the float32 xs
+// (what JAX keeps in VMEM); the projection rounds its operand to 16 bits and
+// writes float32; conv0 rounds silu(xs) and writes h = silu(conv * c)
+// rounded to 16 bits; conv1 reads the residual (float32 xs or projection, or
+// the 16-bit x itself where the block neither gathers nor projects) and
+// rounds the output once.  16-bit weights arrive laid out (taps, Cout, Cin).
+
+// xs (float32) = gather(x, x2): concat / nearest-up / pixel norm
+extern "C" int tdt_block_gather(const void* x, const void* x2, float s1, float s2,
+                                int pre_up, int norm, float* out, int N, int H, int W,
+                                int Cx, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == tdt::DT_F32)
+    return (int)tdt::launch_gather<float>(static_cast<const float*>(x),
+                                          static_cast<const float*>(x2), s1, s2, pre_up, norm,
+                                          out, N, H, W, Cx, s);
+  return (int)tdt::by_dtype(dtype, [&](auto* e) {
+    using E = std::remove_pointer_t<decltype(e)>;
+    return tdt::launch_gather<E>(static_cast<const E*>(x), static_cast<const E*>(x2), s1, s2,
+                                 pre_up, norm, out, N, H, W, Cx, s);
+  });
+}
+
+// out (float32) = x @ wskip: the 1x1 projection on the conv core with one
+// tap; x is float32 if x_f32 (always in float32 blocks), else 16-bit
+extern "C" int tdt_block_proj(const void* x, int x_f32, const void* wskip, float* out, int N,
+                              int H, int W, int Cin, int Cout, int dtype, void* stream) {
   tdt::EpiArgs epi = {};
-  return (int)tdt::launch_conv<1, tdt::IN_NONE, tdt::EPI_NONE>(
-      x, wskip, out, N, H, W, Cin, Cout, epi, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == tdt::DT_F32)
+    return (int)tdt::launch_conv<1, tdt::IN_NONE, tdt::EPI_NONE>(
+        static_cast<const float*>(x), static_cast<const float*>(wskip), out, N, H, W, Cin,
+        Cout, epi, s);
+  return (int)tdt::by_dtype(dtype, [&](auto* e) {
+    using E = std::remove_pointer_t<decltype(e)>;
+    const E* w = static_cast<const E*>(wskip);
+    return x_f32 ? tdt::launch_conv_h<1, E, true, true, tdt::IN_NONE, tdt::EPI_NONE>(
+                       x, w, out, N, H, W, Cin, Cout, epi, s)
+                 : tdt::launch_conv_h<1, E, false, true, tdt::IN_NONE, tdt::EPI_NONE>(
+                       x, w, out, N, H, W, Cin, Cout, epi, s);
+  });
 }
 
-// h = silu(conv3x3(silu(xs), w0) * c)
-extern "C" int tdt_block_conv0(const float* xs, const float* w0,
-                               const float* c, float* h, int N, int H, int W,
-                               int Cin, int Cmid, void* stream) {
+// h = silu(conv3x3(silu(xs), w0) * c), h in the block's type; xs is float32
+// if xs_f32 (always in float32 blocks), else 16-bit; c is float32
+extern "C" int tdt_block_conv0(const void* xs, int xs_f32, const void* w0, const float* c,
+                               void* h, int N, int H, int W, int Cin, int Cmid, int dtype,
+                               void* stream) {
   tdt::EpiArgs epi = {};
   epi.gain = c;
-  return (int)tdt::launch_conv<3, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
-      xs, w0, h, N, H, W, Cin, Cmid, epi, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == tdt::DT_F32)
+    return (int)tdt::launch_conv<3, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
+        static_cast<const float*>(xs), static_cast<const float*>(w0), static_cast<float*>(h), N,
+        H, W, Cin, Cmid, epi, s);
+  return (int)tdt::by_dtype(dtype, [&](auto* e) {
+    using E = std::remove_pointer_t<decltype(e)>;
+    const E* w = static_cast<const E*>(w0);
+    return xs_f32 ? tdt::launch_conv_h<3, E, true, false, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
+                        xs, w, h, N, H, W, Cin, Cmid, epi, s)
+                  : tdt::launch_conv_h<3, E, false, false, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
+                        xs, w, h, N, H, W, Cin, Cmid, epi, s);
+  });
 }
 
 // out = clip((xres * res_a + conv3x3(h, w1) * res_b) / res_norm), with
-// res_a = 1 - t, res_b = t, res_norm = sqrt((1 - t)^2 + t^2) from the caller
-extern "C" int tdt_block_conv1(const float* h, const float* w1,
-                               const float* xres, float* out, int N, int H,
-                               int W, int Cmid, int Cout, float res_a,
-                               float res_b, float res_norm, int clip,
-                               float clip_val, void* stream) {
+// res_a = 1 - t, res_b = t, res_norm = sqrt((1 - t)^2 + t^2) from the caller;
+// h and out in the block's type; xres is float32 if xres_f32 (always in
+// float32 blocks), else 16-bit
+extern "C" int tdt_block_conv1(const void* h, const void* w1, const void* xres, int xres_f32,
+                               void* out, int N, int H, int W, int Cmid, int Cout,
+                               float res_a, float res_b, float res_norm, int clip,
+                               float clip_val, int dtype, void* stream) {
   tdt::EpiArgs epi = {};
-  epi.residual = xres;
+  if (xres_f32 || dtype == tdt::DT_F32)
+    epi.residual = static_cast<const float*>(xres);
+  else
+    epi.residual_h = xres;
   epi.res_a = res_a;
   epi.res_b = res_b;
   epi.res_norm = res_norm;
   epi.clip = clip;
   epi.clip_val = clip_val;
-  return (int)tdt::launch_conv<3, tdt::IN_NONE, tdt::EPI_RESIDUAL>(
-      h, w1, out, N, H, W, Cmid, Cout, epi, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == tdt::DT_F32)
+    return (int)tdt::launch_conv<3, tdt::IN_NONE, tdt::EPI_RESIDUAL>(
+        static_cast<const float*>(h), static_cast<const float*>(w1), static_cast<float*>(out),
+        N, H, W, Cmid, Cout, epi, s);
+  return (int)tdt::by_dtype(dtype, [&](auto* e) {
+    using E = std::remove_pointer_t<decltype(e)>;
+    return tdt::launch_conv_h<3, E, false, false, tdt::IN_NONE, tdt::EPI_RESIDUAL>(
+        h, static_cast<const E*>(w1), out, N, H, W, Cmid, Cout, epi, s);
+  });
 }

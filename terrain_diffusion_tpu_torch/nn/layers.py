@@ -160,8 +160,8 @@ class UNetBlock(nn.Module):
         y = self.attn_qkv(x)
         if self.attention_impl == "pallas" and attention_eligible(y, self.num_heads):
             out = fused_pixelnorm_attention(y.contiguous(), self.num_heads)
-        else:
-            out = pixelnorm_attention_reference(y, self.num_heads)
+        else:  # JAX's XLA formulation: normed q, k, v in the activations' type
+            out = pixelnorm_attention_reference(y, self.num_heads, round_normed=True)
         return self.attn_proj(out.to(x.dtype))
 
     def _tail(self, x):

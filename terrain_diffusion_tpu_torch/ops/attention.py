@@ -22,7 +22,15 @@ Counterpart of ``terrain_diffusion_tpu.ops.pallas_attention``:
   base model's midblock (8x8, 12 heads) is eligible at every latent bucket.
 
 qkv is (N, H, W, 3C) with channels laid out (head, channel, qkv), the qkv
-index fastest; the result is (N, H, W, C), before the output projection.
+index fastest; the result is (N, H, W, C), before the output projection, in
+qkv's type.  A bfloat16 or float16 qkv (the qkv conv's output in a 16-bit
+U-Net) goes to the tensor-core kernel's 16-bit form, which widens each value
+to float32 as it fills its tiles, runs the pixel norm, softmax and both
+products as for float32, and rounds the output once: the Pallas kernel's
+rounding points (``_attn_kernel`` widens ``qkv``, writes ``qkv.dtype``).
+Bound, as in float32, by its bytes at the midblock's shapes, now 2 bytes a
+value.  Only the tensor-core widths (16, 32, 64) take 16 bits; a 16-bit qkv
+at any other width, and any other type, raises TypeError.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import math
 
 import torch
 
-from terrain_diffusion_tpu_torch.ops.cuda_lib import (check_input, check_rc, counted,
+from terrain_diffusion_tpu_torch.ops.cuda_lib import (DTYPE_CODES, check_input, check_rc,
+                                                      count_launch, counted, kernel_dtype,
                                                       load, stream)
 
 TENSOR_CORE_CHANNELS = (16, 32, 64)  # csrc/attention.cu's pixelnorm_attention_tc<CH>
@@ -63,10 +72,13 @@ def attention_eligible(qkv: torch.Tensor, num_heads: int) -> bool:
 
 
 def pixelnorm_attention_reference(qkv: torch.Tensor, num_heads: int,
-                                  eps: float = 1e-4) -> torch.Tensor:
+                                  eps: float = 1e-4, round_normed: bool = False) -> torch.Tensor:
     """Plain version: pixel-norm q, k, v over each head's channels, softmax
     of q.k / sqrt(ch) over the keys, weighted sum of v; in float32, or in
-    float64 for a float64 input (the kernel's exact oracle in the tests)."""
+    float64 for a float64 input (the kernel's exact oracle in the tests).  A
+    16-bit qkv is widened to float32 and the output rounded to its type;
+    ``round_normed`` also rounds the pixel-normed q, k, v to it, as the JAX
+    package's XLA formulation (``mp.normalize`` in qkv's type) does."""
     n, h, w, c3 = qkv.shape
     c = c3 // 3
     ch = c // num_heads
@@ -74,6 +86,8 @@ def pixelnorm_attention_reference(qkv: torch.Tensor, num_heads: int,
     y = y.reshape(n, h * w, num_heads, ch, 3).permute(0, 2, 3, 4, 1)  # (N, heads, ch, 3, HW)
     norm = torch.sqrt(torch.sum(y * y, dim=2, keepdim=True))
     y = y / (eps + norm * math.sqrt(1.0 / ch))  # mp.normalize over ch
+    if round_normed:
+        y = y.to(qkv.dtype).to(y.dtype)
     q, k, v = (y[:, :, :, i] for i in range(3))
     logits = torch.einsum("nhcq,nhck->nhqk", q, k / math.sqrt(ch))
     wts = torch.softmax(logits, dim=3)
@@ -84,10 +98,12 @@ def pixelnorm_attention_reference(qkv: torch.Tensor, num_heads: int,
 @counted
 def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
                               eps: float = 1e-4) -> torch.Tensor:
-    """(N, H, W, 3C) float32 qkv -> (N, H, W, C) attention output."""
+    """(N, H, W, 3C) float32, bfloat16 or float16 qkv -> (N, H, W, C) attention
+    output in qkv's type."""
     if qkv.device.type == "cpu":
         return pixelnorm_attention_reference(qkv, num_heads, eps)
-    check_input("qkv", qkv, qkv.device, 4)
+    dt = kernel_dtype("qkv", qkv)
+    check_input("qkv", qkv, qkv.device, 4, dt)
     n, h, w, c3 = qkv.shape
     if c3 % 3 or num_heads <= 0 or (c3 // 3) % num_heads:
         raise ValueError(f"qkv shape {tuple(qkv.shape)} does not split into "
@@ -95,9 +111,13 @@ def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must be 16-byte aligned: the kernel copies 16-byte words")
     c = c3 // 3
-    out = torch.empty((n, h, w, c), device=qkv.device, dtype=torch.float32)
-    check_rc(load().tdt_pixelnorm_attention(
-        qkv.data_ptr(), out.data_ptr(), n, h * w, num_heads, c // num_heads,
-        float(eps), stream(qkv.device)), "fused_pixelnorm_attention")
-    fused_pixelnorm_attention.launches += 1
+    ch = c // num_heads
+    if dt != torch.float32 and attention_path(ch) != "tensor_cores":
+        raise TypeError(f"a {dt} qkv takes the kernel only at {TENSOR_CORE_CHANNELS} "
+                        f"channels a head, got {ch}")
+    out = torch.empty((n, h, w, c), device=qkv.device, dtype=dt)
+    check_rc(load().tdt_pixelnorm_attention(qkv.data_ptr(), out.data_ptr(), n, h * w, num_heads,
+                                            ch, float(eps), DTYPE_CODES[dt], stream(qkv.device)),
+             "fused_pixelnorm_attention")
+    count_launch(fused_pixelnorm_attention, dt)
     return out

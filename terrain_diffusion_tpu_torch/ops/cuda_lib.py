@@ -8,8 +8,9 @@ Nothing here runs at import: the CPU tests import every module, and the
 CPU has no nvcc.
 
 Each kernel wrapper is registered with ``counted``: it gets a plain integer
-``launches`` attribute that the wrapper raises by one where it launches its
-kernel, and ``reset_launch_counts`` zeroes all of them.
+``launches`` attribute and a ``launches_by_dtype`` dict (float32 and the
+16-bit forms apart) that ``count_launch`` raises by one where the wrapper
+launches its kernel, and ``reset_launch_counts`` zeroes all of them.
 """
 from __future__ import annotations
 
@@ -33,16 +34,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (every entry point returns a cudaError_t,
-# but tdt_attention_path, which returns the attention's dispatch rule)
+# but tdt_attention_path, which returns the attention's dispatch rule).
+# Each kernel entry takes the dtype code (DTYPE_CODES) of the activations it
+# runs on, just before the stream.
 _SIGNATURES = {
-    "tdt_conv3x3": [P, P, P, I, I, I, I, I, P],
-    "tdt_block_gather": [P, P, F, F, I, I, P, I, I, I, I, P],
-    "tdt_block_proj": [P, P, P, I, I, I, I, I, P],
-    "tdt_block_conv0": [P, P, P, P, I, I, I, I, I, P],
-    "tdt_block_conv1": [P, P, P, P, I, I, I, I, I, F, F, F, I, F, P],
-    "tdt_pixelnorm_attention": [P, P, I, I, I, I, F, P],
+    "tdt_conv3x3": [P, P, P, I, I, I, I, I, I, P],
+    "tdt_block_gather": [P, P, F, F, I, I, P, I, I, I, I, I, P],
+    "tdt_block_proj": [P, I, P, P, I, I, I, I, I, I, P],
+    "tdt_block_conv0": [P, I, P, P, P, I, I, I, I, I, I, P],
+    "tdt_block_conv1": [P, P, P, I, P, I, I, I, I, I, F, F, F, I, F, I, P],
+    "tdt_pixelnorm_attention": [P, P, I, I, I, I, F, I, P],
     "tdt_attention_path": [I],
 }
+# The types the kernels take, by their dtype code (csrc/conv3x3.cuh: DT_F32,
+# DT_BF16, DT_F16): float32 runs the 3xTF32 kernels, bf16 and fp16 the
+# 16-bit forms.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
 _lib = None
@@ -51,15 +58,24 @@ _COUNTED = []
 
 
 def counted(fn):
-    """Register a kernel wrapper: ``fn.launches`` counts its launches."""
+    """Register a kernel wrapper: ``fn.launches`` counts its launches, and
+    ``fn.launches_by_dtype`` the same launches by the kernel's type."""
     fn.launches = 0
+    fn.launches_by_dtype = {}
     _COUNTED.append(fn)
     return fn
+
+
+def count_launch(fn, dtype: torch.dtype):
+    """One launch of wrapper ``fn``'s kernel in ``dtype``."""
+    fn.launches += 1
+    fn.launches_by_dtype[dtype] = fn.launches_by_dtype.get(dtype, 0) + 1
 
 
 def reset_launch_counts():
     for fn in _COUNTED:
         fn.launches = 0
+        fn.launches_by_dtype = {}
 
 
 def _nvcc() -> str:
@@ -134,15 +150,26 @@ def check_rc(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def check_input(name: str, t: torch.Tensor, device, ndim: int):
+def check_input(name: str, t: torch.Tensor, device, ndim: int, dtype=torch.float32):
+    """Raise unless t is a contiguous ``ndim``-d tensor of ``dtype`` on
+    ``device`` (TypeError for the type, ValueError for the rest)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-d, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def kernel_dtype(name: str, t: torch.Tensor) -> torch.dtype:
+    """The type a kernel runs in for input t: float32 or a 16-bit type of
+    DTYPE_CODES; TypeError for any other."""
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: the kernels take {', '.join(map(str, DTYPE_CODES))}, "
+                        f"got {t.dtype}")
+    return t.dtype
 
 
 def ptr(t):

@@ -17,6 +17,13 @@ Counterpart of ``terrain_diffusion_tpu.pipeline.world`` (serving path):
   elevation; windowed temperature regression + bilinear grid-sample for
   climate.
 
+``dtype="bf16"`` (or ``"fp16"``) runs the three stage models in bfloat16
+(float16), as the JAX package's ``dtype`` does: each stage casts its model
+input, noise labels and conditioning to that type, the U-Nets cast their
+float32 parameters per forward and run the kernels' 16-bit forms on the
+card, and each model output goes back to float32 before the scheduler
+arithmetic.  Sampling, composition, noise and wire packing stay float32.
+
 Every stage evaluates a whole padded tile batch as one tensor with a real
 batch dimension.  Stochastic inputs come from a tiled noise field keyed on
 (seed + stage offset, tile): the threefry field (the default), generated on
@@ -65,6 +72,9 @@ LOWFREQ_MEAN = -31.4
 LOWFREQ_STD = 38.6
 SCHED = EDMSchedulerConfig(sigma_min=0.002, sigma_max=80, sigma_data=0.5)
 SD = SCHED.sigma_data
+# dtype= values the port serves -> the stage models' compute type
+COMPUTE_DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16,
+                  "fp16": torch.float16}
 
 
 def _ceil_div(a, b):
@@ -97,8 +107,8 @@ class WorldPipeline:
             raise ValueError(f"T must be 1 or 2, got {T}")
         if noise_mode not in ("threefry", "portable"):
             raise ValueError(f"unknown noise mode {noise_mode!r}")
-        if dtype not in (None, "fp32"):
-            raise NotImplementedError(f"dtype={dtype!r}: the port serves float32 only")
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r}: 'fp32', 'bf16' or 'fp16'")
         if caching_strategy != "direct":
             raise NotImplementedError("only caching_strategy='direct' is ported")
         use_full_f32()
@@ -115,6 +125,7 @@ class WorldPipeline:
         self.decoder_tile_size = decoder_tile_size
         self.decoder_tile_stride = decoder_tile_stride
         self.noise_mode = noise_mode
+        self.compute_dtype = COMPUTE_DTYPES[dtype]
         self.device = torch.device(device)
         self.kwargs = {
             "latent_compression": latent_compression,
@@ -134,6 +145,9 @@ class WorldPipeline:
         self.tile_store = None
         self.synthetic_map_factory = None
         self.coarse = self.latents = self.residual = None
+        self.custom_conditioning_imports = {}
+        self.custom_conditioning_import_origins = {}
+        self.custom_conditioning_default_values = {}
         self.stage_timings = {}
 
     # ==================================================================
@@ -213,6 +227,78 @@ class WorldPipeline:
         self.rebuild()
         return True
 
+    def set_cond_snr(self, cond_snr) -> None:
+        """Per-channel SNR of the coarse stage's conditioning; drops the
+        cached windows."""
+        if len(cond_snr) != 5:
+            raise ValueError("cond_snr must contain exactly 5 values.")
+        self.kwargs["cond_snr"] = [float(x) for x in cond_snr]
+        self.rebuild()
+
+    # ==================================================================
+    # Custom conditioning imports (replace synthetic-map channels)
+    # ==================================================================
+    def set_custom_conditioning_import(self, channel: int, values: np.ndarray,
+                                       origin_i: int, origin_j: int,
+                                       default_value: float | None = None) -> None:
+        """Replace raw synthetic-map channel `channel` by `values` (a 2-D
+        array placed at world cell (origin_i, origin_j)) and, outside it, by
+        `default_value` when one is given; drops the cached windows."""
+        values = np.asarray(values, dtype=np.float32)
+        if values.ndim != 2:
+            raise ValueError("Custom conditioning import must be a 2-D array.")
+        channel = int(channel)
+        self.custom_conditioning_imports[channel] = values.copy()
+        self.custom_conditioning_import_origins[channel] = (int(origin_i), int(origin_j))
+        if default_value is None:
+            self.custom_conditioning_default_values.pop(channel, None)
+        else:
+            self.custom_conditioning_default_values[channel] = float(default_value)
+        self.rebuild()
+
+    def _sample_custom_conditioning_channel(self, channel, ci0, ci1, cj0, cj1):
+        """(values, mask) of the imports for `channel` over [ci0, ci1) x
+        [cj0, cj1), or (None, None) where nothing is imported there."""
+        import_values = self.custom_conditioning_imports.get(channel)
+        default_value = self.custom_conditioning_default_values.get(channel)
+        if import_values is None and default_value is None:
+            return None, None
+        h, w = ci1 - ci0, cj1 - cj0
+        if default_value is None:
+            values = np.zeros((h, w), dtype=np.float32)
+            mask = np.zeros((h, w), dtype=bool)
+        else:
+            values = np.full((h, w), float(default_value), dtype=np.float32)
+            mask = np.ones((h, w), dtype=bool)
+        if import_values is not None:
+            src_i0, src_j0 = self.custom_conditioning_import_origins[channel]
+            src_i1 = src_i0 + import_values.shape[0]
+            src_j1 = src_j0 + import_values.shape[1]
+            oi0, oi1 = max(ci0, src_i0), min(ci1, src_i1)
+            oj0, oj1 = max(cj0, src_j0), min(cj1, src_j1)
+            if oi0 < oi1 and oj0 < oj1:
+                values[oi0 - ci0:oi1 - ci0, oj0 - cj0:oj1 - cj0] = import_values[
+                    oi0 - src_i0:oi1 - src_i0, oj0 - src_j0:oj1 - src_j0]
+                mask[oi0 - ci0:oi1 - ci0, oj0 - cj0:oj1 - cj0] = True
+        if not mask.any():
+            return None, None
+        return values, mask
+
+    def _conditioning_model_input(self, ci0, ci1, cj0, cj1) -> np.ndarray:
+        """(5, H, W) float32 conditioning for the coarse U-Net: the synthetic
+        map, with any imported channels written over its raw values."""
+        if not self.custom_conditioning_imports:
+            return self.synthetic_map_factory(ci0, cj0, ci1, cj1)
+        raw = np.asarray(self.synthetic_map_factory.sample_raw(ci0, cj0, ci1, cj1),
+                         dtype=np.float32)
+        for channel in range(raw.shape[0]):
+            values, mask = self._sample_custom_conditioning_channel(
+                channel, ci0, ci1, cj0, cj1)
+            if values is not None:
+                raw[channel][mask] = values[mask]
+        raw[0] = np.sign(raw[0]) * np.sqrt(np.abs(raw[0]))
+        return raw
+
     # ==================================================================
     # Observability
     # ==================================================================
@@ -275,12 +361,13 @@ class WorldPipeline:
                     for m in (self.kwargs["elev_coarse_pool_mode"],
                               self.kwargs["p5_coarse_pool_mode"])]
         model = self.coarse_model
+        dt = self.compute_dtype
 
         def f(ctxs):
             seed = self.seed
             i1s = [(int(i) * (STRIDE // pool)) * pool for i in ctxs[:, 1]]
             j1s = [(int(j) * (STRIDE // pool)) * pool for j in ctxs[:, 2]]
-            conds = [(self.synthetic_map_factory(i1, j1, i1 + TILE, j1 + TILE)
+            conds = [(self._conditioning_model_input(i1, i1 + TILE, j1, j1 + TILE)
                       - cond_means[:, None, None]) / cond_stds[:, None, None]
                      for i1, j1 in zip(i1s, j1s)]
             B = len(ctxs)
@@ -288,13 +375,13 @@ class WorldPipeline:
             cond_noise = self._noise(seed, i1s, j1s, TILE, TILE, 5, TILE)
             cond_img = torch.cos(tc) * cond + torch.sin(tc) * cond_noise
             x = self._noise(seed + 1, i1s, j1s, TILE, TILE, 6, TILE) * sigmas0
-            cond_scalars = [torch.full((B,), float(v), device=self.device)
+            cond_scalars = [torch.full((B,), float(v), device=self.device, dtype=dt)
                             for v in cond_scalar_vals]
 
             def model_fn(scaled, sigma):
                 label = float(trigflow_precondition_noise(sigma, SD))
-                x_in = torch.cat([scaled, cond_img], dim=1).permute(0, 2, 3, 1)
-                out = model(x_in, torch.full((B,), label, device=self.device),
+                x_in = torch.cat([scaled, cond_img], dim=1).permute(0, 2, 3, 1).to(dt)
+                out = model(x_in, torch.full((B,), label, device=self.device, dtype=dt),
                             cond_scalars)
                 return out.permute(0, 3, 1, 2).float()
 
@@ -339,6 +426,7 @@ class WorldPipeline:
     def _latent_fn(self, t_value: float, seed_offset: int, with_prev: bool):
         TILE, STRIDE = 64, 32
         model = self.base_model
+        dt = self.compute_dtype
         wwin = self._tensor(linear_weight_window(TILE))
         t = torch.tensor(t_value, dtype=torch.float32, device=self.device)
 
@@ -350,8 +438,8 @@ class WorldPipeline:
             prev = (prevs[:, :-1] / prevs[:, -1:] * SD if with_prev
                     else torch.zeros((B, 5, TILE, TILE), device=self.device))
             x_t = torch.cos(t) * prev + torch.sin(t) * (z * SD)
-            x_in = (x_t / SD).permute(0, 2, 3, 1)
-            pred = -model(x_in, t.expand(B), [self._build_cond(coarses)])
+            x_in = (x_t / SD).permute(0, 2, 3, 1).to(dt)
+            pred = -model(x_in, t.expand(B).to(dt), [self._build_cond(coarses).to(dt)])
             pred = pred.permute(0, 3, 1, 2).float()
             sample = (torch.cos(t) * x_t - torch.sin(t) * SD * pred) / SD
             return torch.cat([sample * wwin, wwin.expand(B, 1, TILE, TILE)], dim=1)
@@ -404,6 +492,7 @@ class WorldPipeline:
         t_list = [float(np.arctan(sigmas0 / SD))]
         wwin = self._tensor(linear_weight_window(TILE))
         model = self.decoder_model
+        dt = self.compute_dtype
 
         # The portable field reuses the latent stage's offsets 5819 + step, as
         # the reference does: the decoder tile index hr // 512 equals the
@@ -421,8 +510,8 @@ class WorldPipeline:
                                 ctxs[:, 2] * STRIDE, TILE, TILE, 1, TILE)
                 t = torch.tensor(t_val, dtype=torch.float32, device=self.device)
                 x_t = torch.cos(t) * sample + torch.sin(t) * (z * SD)
-                x_in = torch.cat([x_t / SD, up], dim=1).permute(0, 2, 3, 1).contiguous()
-                pred = -model(x_in, t.expand(B), [])
+                x_in = torch.cat([x_t / SD, up], dim=1).permute(0, 2, 3, 1).to(dt).contiguous()
+                pred = -model(x_in, t.expand(B).to(dt), [])
                 pred = pred.permute(0, 3, 1, 2).float()
                 sample = torch.cos(t) * x_t - torch.sin(t) * SD * pred
             sample = sample / SD

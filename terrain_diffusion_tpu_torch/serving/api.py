@@ -50,7 +50,7 @@ def _get_pipeline():
         pipe = WorldPipeline.from_pretrained(
             cfg["model_path"], seed=cfg.get("seed"),
             latents_batch_size=cfg.get("latents_batch_size", 4),
-            log_mode=cfg.get("log_mode", "verbose"),
+            log_mode=cfg.get("log_mode", "verbose"), dtype=cfg.get("dtype"),
             cache_limit=cfg.get("cache_limit"), device=cfg.get("device", "cuda"),
             **cfg.get("kwargs", {}))
     if pipe.tile_store is None:
@@ -170,6 +170,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--batch-size", default="1,4")
     ap.add_argument("--log-mode", choices=["info", "verbose"], default="verbose")
+    ap.add_argument("--dtype", choices=["fp32", "bf16", "fp16"], default="fp32",
+                    help="the stage models' compute type")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=int(os.getenv("PORT", "8000")))
     ap.add_argument("--threaded", action=argparse.BooleanOptionalAction, default=False,
@@ -184,7 +186,8 @@ def main(argv=None):
     configure(model_path=args.model_path, device=args.device,
               cache_limit=parse_cache_size(args.cache_size), seed=args.seed,
               latents_batch_size=parse_batch_sizes(args.batch_size),
-              log_mode=args.log_mode, kwargs=parse_kwargs(args.extra_kwargs),
+              log_mode=args.log_mode, dtype=None if args.dtype == "fp32" else args.dtype,
+              kwargs=parse_kwargs(args.extra_kwargs),
               coalesce=args.threaded)
     pipe = _get_pipeline()
     if args.warmup:

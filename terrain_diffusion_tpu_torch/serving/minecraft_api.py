@@ -468,7 +468,7 @@ def main(argv=None):
     ap.add_argument("--batch-size", default="1,4")
     ap.add_argument("--log-mode", choices=["info", "verbose"], default="verbose")
     ap.add_argument("--dtype", choices=["fp32", "bf16", "fp16"], default="fp32",
-                    help="the port serves fp32 only")
+                    help="the stage models' compute type")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=int(os.getenv("PORT", "8000")))
     ap.add_argument("--threaded", action=argparse.BooleanOptionalAction, default=False,

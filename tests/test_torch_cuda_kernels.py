@@ -10,6 +10,14 @@ Bar: max|diff| / max|ref| < 1e-4 - against the plain version in float32
 float64 on the CPU.  Shapes are small and deliberately ragged (maps that are
 not a multiple of the 8 x 16 pixel tile, channel counts off the tile
 widths: Cin 5, 6, 33, Cout 1, 3, 8, 40).
+
+The 16-bit forms (``*_16bit`` tests) take bf16 or fp16 activations:
+against the plain version on the same inputs the bar is 1e-2 for bf16 and
+2.5e-3 for fp16 (about 2.5 steps of the type at the largest value: both
+round the same intermediates and the output, and sum in another order);
+against the plain version in float64 on the CPU (no rounding at all) the
+kernel's error may be at most 1.25 times the float32 plain version's own,
+which both are dominated by the 16-bit roundings.
 """
 import numpy as np
 import pytest
@@ -21,6 +29,8 @@ from terrain_diffusion_tpu_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
+TOL16 = {torch.bfloat16: 1e-2, torch.float16: 2.5e-3}
+HALF = pytest.mark.parametrize("half", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 
 
 @pytest.fixture
@@ -172,3 +182,121 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         attention.fused_pixelnorm_attention(qkv, 3)  # 16 channels into 3 heads
     with pytest.raises(ValueError):
         attention.fused_pixelnorm_attention(qkv.permute(0, 2, 1, 3), 2)
+
+
+def _check16(got, plain, exact, half):
+    """A 16-bit kernel output against its plain version on the same inputs
+    and against the unrounded float64 oracle, beside the plain version's own
+    distance to it."""
+    assert got.dtype == plain.dtype == half
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got.float(), plain.float()) < TOL16[half]
+    err, err_plain = _rel(got.double().cpu(), exact), _rel(plain.double().cpu(), exact)
+    assert err <= 1.25 * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout,mode,with_x2,preup,proj,clip",
+    [
+        (2, 40, 72, 32, 32, "enc", False, 1, False, 256.0),
+        (1, 24, 40, 32, 64, "enc", False, 1, True, 256.0),
+        (2, 40, 72, 32, 32, "dec", True, 1, True, 256.0),
+        (2, 40, 72, 32, 64, "dec", True, 1, False, 256.0),
+        (2, 20, 36, 32, 32, "dec", False, 2, False, 256.0),
+        (1, 33, 47, 48, 64, "dec", False, 1, True, None),
+        (1, 33, 47, 64, 64, "dec", False, 1, False, 256.0),   # xres is the bf16 x itself
+        (1, 12, 20, 256, 256, "dec", False, 2, False, 256.0),
+        (1, 21, 37, 192, 64, "dec", False, 1, True, 256.0),
+        (2, 19, 27, 33, 40, "enc", False, 1, True, 256.0),     # odd Cin: element copies
+        (1, 64, 64, 64, 64, "enc", False, 1, False, 256.0),    # the decoder's widths
+        (1, 32, 32, 64, 128, "enc", False, 1, True, 256.0),
+    ])
+@HALF
+def test_fused_block_kernel_16bit(dev, half, n, h, w, cin, cout, mode, with_x2, preup, proj,
+                                  clip):
+    g = torch.Generator().manual_seed(3)
+    cg = 2 * cin if with_x2 else cin
+    c_main = cout if (mode == "enc" and proj) else cg
+    x = _rand(g, (n, h, w, cin), dev).to(half)
+    x2 = _rand(g, (n, h, w, cin), dev).to(half) if with_x2 else None
+    w0 = _rand(g, (3, 3, c_main, cout), dev, (9 * c_main) ** -0.5)
+    w1 = _rand(g, (3, 3, cout, cout), dev, (9 * cout) ** -0.5)
+    wskip = _rand(g, (cg, cout), dev, cg ** -0.5) if proj else None
+    c = _rand(g, (n, cout), dev, 0.3) + 1.0
+    kw = dict(mode=mode, pixel_norm=(mode == "enc"), res_balance=0.3, clip_act=clip,
+              concat_scales=(0.7, 0.3) if with_x2 else None, pre_upsample=preup)
+    before = fb.fused_block.launches
+    got = fb.fused_block(x, w0, w1, c, wskip, x2, **kw)
+    torch.cuda.synchronize()
+    assert fb.fused_block.launches == before + 1
+    plain = fb.fused_block_reference(x, w0, w1, c, wskip, x2, **kw)
+    exact = fb.fused_block_reference(*(t.double().cpu() if t is not None else None
+                                       for t in (x, w0, w1, c, wskip, x2)), **kw)
+    _check16(got, plain, exact, half)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 64, 64, 6, 64), (2, 64, 80, 64, 1), (1, 37, 53, 5, 3), (2, 30, 50, 33, 40),
+    (1, 21, 35, 6, 64), (2, 19, 27, 33, 1), (1, 13, 50, 6, 40), (1, 9, 17, 256, 8),
+    (1, 40, 40, 64, 64), (2, 24, 40, 128, 96)])
+@HALF
+def test_conv3x3_kernel_16bit(dev, half, n, h, w, cin, cout):
+    g = torch.Generator().manual_seed(4)
+    x = _rand(g, (n, h, w, cin), dev).to(half)
+    wt = _rand(g, (3, 3, cin, cout), dev, (9 * cin) ** -0.5)
+    before = fb.conv3x3.launches
+    got = fb.conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert fb.conv3x3.launches == before + 1
+    x64 = x.double().cpu().permute(0, 3, 1, 2)
+    w64 = wt.double().cpu().permute(3, 2, 0, 1)
+    exact = torch.nn.functional.conv2d(x64, w64, padding=1).permute(0, 2, 3, 1)
+    _check16(got, fb.conv3x3_reference(x, wt), exact, half)
+
+
+@pytest.mark.parametrize("shape,heads", [
+    ((2, 8, 8, 192), 1), ((1, 16, 16, 384), 2), ((3, 8, 8, 2304), 12),
+    ((64, 8, 8, 2304), 12), ((1, 32, 64, 576), 3), ((2, 5, 13, 96), 2),
+    ((2, 9, 15, 192), 2)])
+@HALF
+def test_attention_kernel_16bit(dev, half, shape, heads):
+    g = torch.Generator().manual_seed(5)
+    qkv = _rand(g, shape, dev, 3.0).to(half)
+    before = attention.fused_pixelnorm_attention.launches
+    got = attention.fused_pixelnorm_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert attention.fused_pixelnorm_attention.launches == before + 1
+    exact = attention.pixelnorm_attention_reference(qkv.double().cpu(), heads)
+    _check16(got, attention.pixelnorm_attention_reference(qkv, heads), exact, half)
+
+
+def test_kernels_route_by_dtype(dev):
+    """float32 goes to the float32 kernels and bf16 / fp16 to the 16-bit
+    ones, each counted under its type and answering in its input's type; a
+    mixed pair, float64, and a 16-bit qkv at a width off the tensor-core path
+    raise TypeError before any launch."""
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
+
+    g = torch.Generator().manual_seed(6)
+    x = _rand(g, (1, 16, 16, 32), dev)
+    w = _rand(g, (3, 3, 32, 32), dev, (9 * 32) ** -0.5)
+    qkv = _rand(g, (1, 8, 8, 192), dev)
+    cuda_lib.reset_launch_counts()
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        assert fb.conv3x3(x.to(dt), w).dtype == dt
+        assert fb.fused_block(x.to(dt), w, w, None, mode="dec", pixel_norm=False).dtype == dt
+        assert attention.fused_pixelnorm_attention(qkv.to(dt), 1).dtype == dt
+    for fn in (fb.conv3x3, fb.fused_block, attention.fused_pixelnorm_attention):
+        assert fn.launches == 3
+        assert fn.launches_by_dtype == {torch.float32: 1, torch.bfloat16: 1, torch.float16: 1}
+    with pytest.raises(TypeError):  # mixed pair: x2 must have x's type
+        fb.fused_block(x.bfloat16(), _rand(g, (3, 3, 64, 32), dev), w, None, x2=x,
+                       mode="dec", pixel_norm=False, concat_scales=(0.7, 0.3))
+    with pytest.raises(TypeError):
+        fb.conv3x3(x.double(), w)
+    with pytest.raises(TypeError):
+        fb.fused_block(x.double(), w, w, None, mode="dec", pixel_norm=False)
+    with pytest.raises(TypeError):  # ch = 400 runs the float32 CUDA-core kernel only
+        attention.fused_pixelnorm_attention(_rand(g, (1, 8, 8, 1200), dev).bfloat16(), 1)
+    for fn in (fb.conv3x3, fb.fused_block, attention.fused_pixelnorm_attention):
+        assert fn.launches == 3
