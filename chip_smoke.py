@@ -5,7 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
 1. build the hand-written CUDA kernels from csrc/ (one nvcc per source, in
-   parallel, sm_90a);
+   parallel, sm_90a), with ptxas' register report for every conv, block and
+   wgmma-core instantiation; it fails on a spill in any of them and on
+   ptxas' warning that wgmma.mma_async instructions are serialized;
 2. kernel phase: each kernel against its plain PyTorch version on the same
    inputs, TF32 off on both sides, bar max|diff| / max|ref| < 1e-4 (float32,
    another summation order), with the eager times of the kernel, its plain
@@ -31,7 +33,12 @@ Phases, each of which exits non-zero on failure:
    one row, a head of 400 channels, runs the CUDA-core kernel.  Then the
    fused block, at production widths on small maps, and the attention at
    the midblock b64 and HW = 2048, against their plain versions run in
-   float64 on the CPU, beside the float32 plain version's own error;
+   float64 on the CPU, beside the float32 plain version's own error.  The
+   16-bit conv chooser of the built library (``tdt_conv16_path``) must
+   equal ``fused_block.conv16_path`` at every width; and for the bf16 block
+   at enc 512x512 64->64 b2 and dec 512x512 proj 192->64 b2 one row per
+   launch (prep, projection, conv0, conv1: ms, device ms, bytes, FLOPs,
+   bound, and for a conv cuDNN's bf16 ``F.conv2d`` of its shape);
 3. threefry phase: the card's threefry noise crop equals the CPU's bit for
    bit, on a crop with negative coordinates;
 4. model phase: the production-width decoder U-Net (128x128 input) and base
@@ -124,6 +131,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, case reported in the JSO
                   "midblock 8x8 12x64 b64"),
 }
 BF16, FP16 = " bf16", " fp16"  # suffixes of the 16-bit rows' kernel names
+LAUNCH_ROW_CASES = ("enc 512x512 64->64 b2", "dec 512x512 proj 192->64 b2")
 
 
 def fail(msg: str):
@@ -249,9 +257,27 @@ def sdpa_inputs(qkv, heads: int, eps: float = 1e-4):
     return [t.contiguous() for t in y]
 
 
-def kernel_phase(torch, fb, attn, dev):
+def conv16_paths(fb):
+    """The built library's 16-bit conv chooser equals the wrapper's mirror
+    at every width up to 512 channels in and out, 1x1 and 3x3."""
+    counts, wrong = {}, []
+    for ks in (1, 3):
+        for cin in range(1, 513):
+            for cout in range(1, 513):
+                got, want = fb.library_conv16_path(ks, cin, cout), fb.conv16_path(ks, cin, cout)
+                if got != want:
+                    wrong.append((ks, cin, cout, got, want))
+                counts[want] = counts.get(want, 0) + 1
+    check(not wrong, f"the library's 16-bit conv chooser differs from conv16_path at "
+          f"{len(wrong)} (ks, cin, cout, library, mirror), first {wrong[:5]}")
+    print(f"[kernel] 16-bit conv chooser equals conv16_path on every width pair: {counts}",
+          flush=True)
+
+
+def kernel_phase(torch, fb, attn, cuda_lib, dev):
     import torch.nn.functional as F
 
+    conv16_paths(fb)
     g = torch.Generator().manual_seed(SEED)
     bf16 = torch.bfloat16
 
@@ -416,8 +442,115 @@ def kernel_phase(torch, fb, attn, dev):
     print("[kernel] attention library = F.scaled_dot_product_attention(q, k, v) on pre-normed "
           "contiguous (N, heads, HW, ch) tensors in the row's type, TF32 off: it leaves out the "
           "pixel norm and the layout change", flush=True)
+    for kernel, name, case in cases:  # the bf16 block's launches, one row each
+        if kernel == "fused_block" + BF16 and name in LAUNCH_ROW_CASES:
+            launch_rows(torch, fb, cuda_lib, dev, name, case)
     float64_checks(torch, fb, attn, block_args, rand)
     return rows
+
+
+class LaunchRecorder:
+    """Stands in for the kernel library while one block runs: every call of a
+    block entry point launches as it would, and then measure(entry, replay,
+    arguments) times it alone, replay(stream) launching it again on the
+    given stream, while the block's wrapper still holds its tensors."""
+
+    def __init__(self, lib, measure):
+        self.lib, self.measure = lib, measure
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.startswith("tdt_block_"):
+            return fn
+
+        def call(*args):
+            rc = fn(*args)
+            if rc == 0:
+                self.measure(name, lambda stream: fn(*args[:-1], stream), args)
+            return rc
+        return call
+
+
+def launch_work(name, args):
+    """(label, FLOPs, bytes, conv (n, h, w, ks, cin, cout) or None) of one
+    recorded block launch, from its C arguments (csrc/fused_block.cu): each
+    input read once, each output written once, at the real element sizes;
+    None for an entry this accounting does not know."""
+    if name == "tdt_block_prep":
+        x_f32, pre_up, xs, xr, a, n, h, w, cx, dtype = (args[2], *args[5:6], *args[7:15])
+        e = 4 if dtype == 0 else 2
+        px, cg = n * h * w, (2 * cx if args[1] else cx)
+        read = (px // 4 if pre_up else px) * cg * (4 if x_f32 else e)
+        wrote = px * cg * (4 * bool(xs) + e * bool(xr) + e * bool(a))
+        outs = "+".join(o for o, t in (("xs", xs), ("xr", xr), ("a", a)) if t)
+        return f"prep -> {outs}", 0, read + wrote, None
+    if name == "tdt_block_proj":
+        x_f32, n, h, w, cin, cout, dtype = (args[1], *args[4:10])
+        e, px = (4 if dtype == 0 else 2), n * h * w
+        return ("projection", 2 * px * cin * cout,
+                px * cin * (4 if x_f32 else e) + cin * cout * e + px * cout * 4,
+                (n, h, w, 1, cin, cout))
+    if name == "tdt_block_conv0":
+        xs_f32, n, h, w, cin, cmid, dtype = (args[1], *args[5:11])
+        e, px = (4 if dtype == 0 else 2), n * h * w
+        return ("conv0", 18 * px * cin * cmid, px * cin * (4 if xs_f32 else e)
+                + 9 * cin * cmid * e + n * cmid * 4 + px * cmid * e, (n, h, w, 3, cin, cmid))
+    if name == "tdt_block_conv1":
+        xres_f32, n, h, w, cmid, cout, dtype = (args[3], *args[5:10], args[15])
+        e, px = (4 if dtype == 0 else 2), n * h * w
+        return ("conv1", 18 * px * cmid * cout, px * cmid * e + 9 * cmid * cout * e
+                + px * cout * ((4 if xres_f32 else e) + e), (n, h, w, 3, cmid, cout))
+    return None
+
+
+def launch_rows(torch, fb, cuda_lib, dev, name, case):
+    """One row per launch of a bf16 block case: each launch recorded from one
+    block call and replayed alone (eager ms: 5 calls; device ms: 5 calls in a
+    CUDA graph), with its FLOPs, bytes, bf16 bound and, for a conv, cuDNN's
+    bf16 F.conv2d of its shape as library_ms."""
+    import torch.nn.functional as F
+
+    rows = []
+
+    def measure(entry, launch, args):
+        def replay():
+            check(launch(torch.cuda.current_stream().cuda_stream) == 0, f"{entry} replay failed")
+        torch.cuda.synchronize()
+        rows.append((entry, args, time_ms(replay), graph_ms(replay)))
+
+    lib = cuda_lib.load()
+    cuda_lib._lib = LaunchRecorder(lib, measure)
+    try:
+        case["run"]()
+    finally:
+        cuda_lib._lib = lib
+    torch.cuda.synchronize()
+    total = total_dev = total_bound = 0.0
+    for entry, args, ms, dev_ms in rows:
+        work = launch_work(entry, args)
+        total, total_dev = total + ms, total_dev + dev_ms
+        if work is None:
+            print(f"[launch] fused_block bf16 {name}: {entry} {ms:.4f} ms (device "
+                  f"{dev_ms:.4f} ms), work not counted", flush=True)
+            continue
+        label, flops, n_bytes, conv = work
+        b_ms, b_by = bound_ms(flops, n_bytes, "bf16")
+        total_bound += b_ms
+        lib_txt = ""
+        if conv is not None:
+            n, h, w, ks, cin, cout = conv
+            xi = torch.randn((n, h, w, cin), device=dev).bfloat16().permute(0, 3, 1, 2)
+            wi = torch.randn((cout, cin, ks, ks), device=dev).bfloat16()
+            lib_ms = time_ms(lambda: F.conv2d(xi, wi, padding=ks // 2))
+            lib_txt = (f" library={lib_ms:.4f} ms (cuDNN bf16 F.conv2d {ks}x{ks} {cin}->{cout}) "
+                       f"core={fb.conv16_path(ks, cin, cout)}")
+            del xi, wi
+        print(f"[launch] fused_block bf16 {name}: {label:18s} {ms:.4f} ms (device {dev_ms:.4f} "
+              f"ms) | {flops / 1e9:.3f} GFLOP {n_bytes / 1e6:.1f} MB bound={b_ms:.4f} ms "
+              f"({b_by}) share={b_ms / ms:.1%} (device {b_ms / dev_ms:.1%}){lib_txt}", flush=True)
+    print(f"[launch] fused_block bf16 {name}: {len(rows)} launches, summed "
+          f"{total:.4f} ms (device {total_dev:.4f} ms) against a summed bound of "
+          f"{total_bound:.4f} ms", flush=True)
 
 
 def float64_checks(torch, fb, attn, block_args, rand):
@@ -989,22 +1122,34 @@ def main():
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    # build afresh, so that the spill and wgmma checks below read this build's
+    # ptxas report (a library left by an earlier build leaves no log)
+    stale = cuda_lib.library_path()
+    if os.path.exists(stale):
+        os.remove(stale)
     path = cuda_lib.build_kernels()
     print(f"[build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    # no spill in the conv kernels and the attention's tensor-core kernel
+    # no spill in the conv, block and wgmma-core kernels and the attention's
+    # tensor-core kernel; no wgmma serialized by ptxas
     source = function = None
+    n_wgmma = 0
     for line in cuda_lib.build_log.splitlines():
         if (line.startswith("==") or "registers" in line or "spill" in line
-                or "Function properties" in line):
+                or "Function properties" in line or "smem" in line or "wgmma" in line):
             print(f"[build] {line.strip()}")
         source = line[3:].strip() if line.startswith("==") else source
         found = re.search(r"Function properties for (\S+)", line)
         function = found.group(1) if found else function
+        n_wgmma += bool(found and "conv_wgmma_kernel" in found.group(1))
         spilled = re.search(r"([1-9]\d*) bytes spill stores", line)
         held = source in ("conv3x3.cu", "fused_block.cu") or (
             source == "attention.cu" and "pixelnorm_attention_tc" in (function or ""))
         check(not (spilled and held), f"{function} of {source} spills registers: {line.strip()}")
+        check(not ("wgmma" in line and "serialized" in line),
+              f"ptxas serializes the wgmma core: {line.strip()}")
+    print(f"[build] {n_wgmma} wgmma-core instantiations", flush=True)
+    check(n_wgmma > 0, "the build log shows no wgmma-core instantiation")
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -1012,7 +1157,7 @@ def main():
         print(f"[time] {name} phase {time.perf_counter() - t0:.1f} s", flush=True)
         return result
 
-    rows = timed("kernel", lambda: kernel_phase(torch, fb, attn, dev))
+    rows = timed("kernel", lambda: kernel_phase(torch, fb, attn, cuda_lib, dev))
     timed("threefry", lambda: threefry_phase(torch, dev))
     models = timed("model build", lambda: build_models(torch, dev))
     timed("model", lambda: model_phase(torch, np, attn, models, dev))

@@ -25,12 +25,14 @@
 //
 // bf16 / fp16 (the Pallas kernel on a 16-bit x: MXU passes at
 // Precision.DEFAULT, output in x.dtype): x, the weight and y are 16-bit,
-// the sums float32, the output rounded once.  The input conv runs the 16-bit
-// core's one bf16 mma.sync pass in K chunks of 8 channels (m16n8k8; its 6
+// the sums float32, the output rounded once, each conv on the core
+// conv_wgmma.cuh's conv16_path picks.  The input conv runs the 16-bit
+// mma.sync core's one pass in K chunks of 8 channels (m16n8k8; its 6
 // channels staged as 4-byte pairs), and stays bound by its output bytes, now
 // 2 bytes a value (33.6 MB for one 512x512 tile); the head reads bf16, sums
-// float32 FMAs on the CUDA cores and is bound by its input bytes.
-#include "conv3x3.cuh"
+// float32 FMAs on the CUDA cores and is bound by its input bytes; a conv
+// with Cin % 16 == 0 and Cout % 64 == 0 runs on the wgmma core.
+#include "conv_wgmma.cuh"
 
 // dtype (tdt::DT_*): float32 x, y and HWIO weight; or bf16 / fp16 x, y and
 // weight, the weight laid out (9, Cout, Cin) (the 16-bit form above).
@@ -44,7 +46,13 @@ extern "C" int tdt_conv3x3(const void* x, const void* w, void* y, int N, int H, 
         H, W, Cin, Cout, epi, s);
   return (int)tdt::by_dtype(dtype, [&](auto* e) {
     using E = std::remove_pointer_t<decltype(e)>;
-    return tdt::launch_conv_h<3, E, false, false, tdt::IN_NONE, tdt::EPI_NONE>(
-        x, static_cast<const E*>(w), y, N, H, W, Cin, Cout, epi, s);
+    return tdt::launch_conv_h<3, E, false, tdt::EPI_NONE>(
+        static_cast<const E*>(x), static_cast<const E*>(w), y, N, H, W, Cin, Cout, epi, s);
   });
+}
+
+// The core a 16-bit KS x KS conv from Cin to Cout channels takes
+// (tdt::Conv16Path; ops/fused_block.py::conv16_path mirrors the rule).
+extern "C" int tdt_conv16_path(int ks, int cin, int cout) {
+  return tdt::conv16_path(ks, cin, cout);
 }

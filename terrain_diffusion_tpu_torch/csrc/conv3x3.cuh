@@ -4,7 +4,8 @@
 // an optional epilogue.  Shared by the standalone conv (conv3x3.cu) and the
 // fused residual block (fused_block.cu).  The end of this file holds the
 // 16-bit form of the same core (bf16 operands on mma.sync, float32 sums),
-// which the bf16 entry points of both run.
+// which the bf16 entry points of both run for the shapes the wgmma core
+// (conv_wgmma.cuh) does not take.
 //
 // Layouts: x (N, H, W, Cin), weight HWIO (KS, KS, Cin, Cout), y (N, H, W,
 // Cout), all C-contiguous.
@@ -140,16 +141,21 @@ __device__ __forceinline__ float2 unpack2(uint32_t w, __half*) {
 // The value an epilogue stores for output element (n, co) at offset off,
 // from its float32 sum v: gain + silu, or residual mix + clip (the residual
 // is float32, or in E where EpiArgs::residual_h holds it).
+// The residual mix + clip of the sum v with the residual value r.
+__device__ __forceinline__ float residual_mix(float r, float v, const EpiArgs& epi) {
+  v = (r * epi.res_a + v * epi.res_b) / epi.res_norm;
+  return epi.clip ? fminf(fmaxf(v, -epi.clip_val), epi.clip_val) : v;
+}
+
 template <int EPI, class E>
 __device__ __forceinline__ float epilogue(float v, const EpiArgs& epi, int n, int Cout, int co,
                                           size_t off) {
   if (EPI == EPI_GAIN_SILU) {
     v = fast_silu(v * epi.gain[(size_t)n * Cout + co]);
   } else if (EPI == EPI_RESIDUAL) {
-    const float r = epi.residual ? epi.residual[off]
-                                 : to_f32(reinterpret_cast<const E*>(epi.residual_h)[off]);
-    v = (r * epi.res_a + v * epi.res_b) / epi.res_norm;
-    if (epi.clip) v = fminf(fmaxf(v, -epi.clip_val), epi.clip_val);
+    v = residual_mix(epi.residual ? epi.residual[off]
+                                  : to_f32(reinterpret_cast<const E*>(epi.residual_h)[off]),
+                     v, epi);
   }
   return v;
 }
@@ -649,17 +655,16 @@ cudaError_t launch_conv(const float* x, const float* w, float* y, int N, int H, 
 // operands are the 16-bit type E, the products run on mma.sync.m16n8k16
 // (m16n8k8 for K chunks of 8 channels) with float32 accumulators, one pass.
 // Rounding points, as the JAX kernel's:
-// - the operand is E: a 16-bit input is used as it is; a float32 input
-//   (the block's gathered, pixel-normed xs) is rounded to E once it is
-//   staged, after the input activation (conv0's silu runs in float32 on the
-//   staged value, then rounds);
+// - the operand is E, as it arrives: the block's prep pass (fused_block.cu)
+//   writes the rounded operands round(xs) and round(silu(xs));
 // - the sums are float32; the epilogue (gain + silu, residual mix + clip)
 //   runs in float32 on them and rounds once, where the output is E (the
 //   projection's output stays float32, as JAX's preferred_element_type
 //   keeps it).
-// Layouts: x (N, H, W, Cin) in E or float32, the weight (KS * KS, Cout, Cin)
-// in E, K contiguous (the wrapper lays it out), y (N, H, W, Cout) in E or
-// float32.
+// Layouts: x (N, H, W, Cin) in E, the weight (KS * KS, Cout, Cin) in E, K
+// contiguous (the wrapper lays it out), y (N, H, W, Cout) in E or float32.
+// conv_wgmma.cuh's launch_conv_h chooses between this core, the wgmma core
+// and the head kernel.
 // What bounds it on the H100: the decoder's convs do 9 * Cin * Cout FMAs per
 // pixel against 2 * (Cin + Cout) bytes, so the 16-bit tensor cores bound
 // them: FLOPs / 989 TFLOP/s.  The 6 -> 64 input conv and the 64 -> 1 head
@@ -669,9 +674,7 @@ cudaError_t launch_conv(const float* x, const float* w, float* y, int N, int H, 
 // (48 bytes, a multiple of the 16-byte copies): with two neighbouring
 // channels in one 32-bit fragment register (NHWC keeps them adjacent), lane
 // (g, t) reads word 12 g + t, so every fragment load of A and of B (the
-// weight rows are K contiguous) hits 32 distinct banks.  A float32 input is
-// staged as float32 and rounded in one pass over the tile, before the
-// products; a 16-bit input with silu gets it in place in the same pass.
+// weight rows are K contiguous) hits 32 distinct banks.
 
 // d += a (16x16, row) * b (16x8, col) in E with float32 accumulators;
 // fragments: a[0] (g, 2t..2t+1), a[1] (g + 8, 2t..), a[2] (g, 2t+8..),
@@ -739,28 +742,22 @@ struct ConvTileH {
   static constexpr int BN = WARPS_N * WN * 8;
   static constexpr int IN_H = TH + KS - 1;
   static constexpr int IN_W = TW + KS - 1;
-  static constexpr int CIP = 24;       // halves per staged pixel: word 12 g + t
-  static constexpr int CKP = 24;       // halves per staged weight row
-  static constexpr int CIPF = CK + 4;  // floats per pixel of the float32 staging tile
+  static constexpr int CIP = 24;  // halves per staged pixel: word 12 g + t
+  static constexpr int CKP = 24;  // halves per staged weight row
   static constexpr int IN_BYTES = 2 * IN_H * IN_W * CIP;
   static constexpr int W_BYTES = 2 * KS * KS * BN * CKP;
-  static constexpr int F_BYTES = 4 * IN_H * IN_W * CIPF;
-  __host__ __device__ static constexpr int stage_bytes(bool in_f32) {
-    return IN_BYTES + W_BYTES + (in_f32 ? F_BYTES : 0);
-  }
-  __host__ __device__ static constexpr int smem(bool in_f32) {
-    return STAGES * stage_bytes(in_f32);
-  }
+  static constexpr int STAGE = IN_BYTES + W_BYTES;
+  static constexpr int SMEM = STAGES * STAGE;
 };
 
 // grid.vec_in / vec_w of the 16-bit kernel: 2 = 16-byte copies of 8
 // channels, 1 = 4-byte copies of 2 channels, 0 = element by element
-template <class T, class E, bool IN_F32, bool OUT_F32, int ACT, int EPI>
+template <class T, class E, bool OUT_F32, int EPI>
 __global__ void __launch_bounds__(T::NT, 2)
-conv_h_kernel(const void* __restrict__ xv, const E* __restrict__ w, void* __restrict__ yv,
+conv_h_kernel(const E* __restrict__ x, const E* __restrict__ w, void* __restrict__ yv,
               int N, int H, int W, int Cin, int Cout, const ConvGrid grid, const EpiArgs epi) {
   constexpr int KS = T::KS, CK = T::CK, WM = T::WM, WN = T::WN;
-  constexpr int STAGE = T::stage_bytes(IN_F32);
+  constexpr int STAGE = T::STAGE;
   extern __shared__ __align__(16) unsigned char h_smem[];
 
   const int tid = threadIdx.x;
@@ -789,65 +786,38 @@ conv_h_kernel(const void* __restrict__ xv, const E* __restrict__ w, void* __rest
     unsigned char* slot = h_smem + (st % T::STAGES) * STAGE;
     E* s_in = reinterpret_cast<E*>(slot);
     E* s_w = reinterpret_cast<E*>(slot + T::IN_BYTES);
-    float* s_f = reinterpret_cast<float*>(slot + T::IN_BYTES + T::W_BYTES);
     const int y0 = ty * T::TH - KS / 2, x0 = tx * T::TW - KS / 2;
-    if (IN_F32) {  // float32 staging tile, rounded to E before the products
-      const float* xn = reinterpret_cast<const float*>(xv) + (size_t)n * H * W * Cin;
-      if (vec_in) {
-        constexpr int Q = CK / 4;
+    const E* xn = x + (size_t)n * H * W * Cin;
+    if (vec_in == 2) {
+      constexpr int Q = CK / 8;
 #pragma unroll 1
-        for (int i = tid; i < T::IN_H * T::IN_W * Q; i += T::NT) {
-          const int q = i % Q, pos = i / Q;
-          const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
-          const int c = c0 + 4 * q;
-          const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
-          cp_async16_raw(s_f + pos * T::CIPF + 4 * q,
-                         ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok);
-        }
-      } else {
+      for (int i = tid; i < T::IN_H * T::IN_W * Q; i += T::NT) {
+        const int q = i % Q, pos = i / Q;
+        const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
+        const int c = c0 + 8 * q;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
+        cp_async16_raw(s_in + pos * T::CIP + 8 * q,
+                       ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok);
+      }
+    } else if (vec_in == 1) {
+      constexpr int Q = CK / 2;
 #pragma unroll 1
-        for (int i = tid; i < T::IN_H * T::IN_W * CK; i += T::NT) {
-          const int ci = i % CK, pos = i / CK;
-          const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
-          const int c = c0 + ci;
-          const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
-          cp_async4_raw(s_f + pos * T::CIPF + ci,
-                        ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok);
-        }
+      for (int i = tid; i < T::IN_H * T::IN_W * Q; i += T::NT) {
+        const int q = i % Q, pos = i / Q;
+        const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
+        const int c = c0 + 2 * q;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
+        cp_async4_raw(s_in + pos * T::CIP + 2 * q,
+                      ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok);
       }
     } else {
-      const E* xn = reinterpret_cast<const E*>(xv) + (size_t)n * H * W * Cin;
-      if (vec_in == 2) {
-        constexpr int Q = CK / 8;
 #pragma unroll 1
-        for (int i = tid; i < T::IN_H * T::IN_W * Q; i += T::NT) {
-          const int q = i % Q, pos = i / Q;
-          const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
-          const int c = c0 + 8 * q;
-          const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
-          cp_async16_raw(s_in + pos * T::CIP + 8 * q,
-                         ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok);
-        }
-      } else if (vec_in == 1) {
-        constexpr int Q = CK / 2;
-#pragma unroll 1
-        for (int i = tid; i < T::IN_H * T::IN_W * Q; i += T::NT) {
-          const int q = i % Q, pos = i / Q;
-          const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
-          const int c = c0 + 2 * q;
-          const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
-          cp_async4_raw(s_in + pos * T::CIP + 2 * q,
-                        ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok);
-        }
-      } else {
-#pragma unroll 1
-        for (int i = tid; i < T::IN_H * T::IN_W * CK; i += T::NT) {
-          const int ci = i % CK, pos = i / CK;
-          const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
-          const int c = c0 + ci;
-          const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
-          s_in[pos * T::CIP + ci] = ok ? xn[((size_t)gy * W + gx) * Cin + c] : from_f32<E>(0.0f);
-        }
+      for (int i = tid; i < T::IN_H * T::IN_W * CK; i += T::NT) {
+        const int ci = i % CK, pos = i / CK;
+        const int gy = y0 + pos / T::IN_W, gx = x0 + pos % T::IN_W;
+        const int c = c0 + ci;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
+        s_in[pos * T::CIP + ci] = ok ? xn[((size_t)gy * W + gx) * Cin + c] : from_f32<E>(0.0f);
       }
     }
     if (nchunks == 1 && st >= T::STAGES) return;  // resident weights
@@ -905,20 +875,8 @@ conv_h_kernel(const void* __restrict__ xv, const E* __restrict__ w, void* __rest
     cp_async_wait<T::STAGES - 1>();
     __syncthreads();
     unsigned char* slot = h_smem + (st % T::STAGES) * STAGE;
-    E* s_in = reinterpret_cast<E*>(slot);
+    const E* s_in = reinterpret_cast<const E*>(slot);
     const E* s_w = reinterpret_cast<const E*>(slot + T::IN_BYTES);
-
-    if (IN_F32 || ACT == IN_SILU) {  // activation and rounding, once per staged element
-      const float* s_f = reinterpret_cast<const float*>(slot + T::IN_BYTES + T::W_BYTES);
-#pragma unroll 1
-      for (int i = tid; i < T::IN_H * T::IN_W * CK; i += T::NT) {
-        const int pos = i / CK, ci = i % CK;
-        float v = IN_F32 ? s_f[pos * T::CIPF + ci] : to_f32(s_in[pos * T::CIP + ci]);
-        if (ACT == IN_SILU) v = fast_silu(v);
-        s_in[pos * T::CIP + ci] = from_f32<E>(v);
-      }
-      __syncthreads();
-    }
 
     const E* a_base = s_in + (wm * WM * T::IN_W + g) * T::CIP + 2 * t;
     const E* b_base = s_w + (wn * WN * 8 + g) * T::CKP + 2 * t;
@@ -1005,23 +963,19 @@ conv_h_kernel(const void* __restrict__ xv, const E* __restrict__ w, void* __rest
   }
 }
 
-template <class T, class E, bool IN_F32, bool OUT_F32, int ACT, int EPI>
-cudaError_t launch_conv_h_tc(const void* x, const E* w, void* y, int N, int H, int W, int Cin,
+template <class T, class E, bool OUT_F32, int EPI>
+cudaError_t launch_conv_h_tc(const E* x, const E* w, void* y, int N, int H, int W, int Cin,
                              int Cout, const EpiArgs& epi, cudaStream_t stream) {
-  auto kernel = conv_h_kernel<T, E, IN_F32, OUT_F32, ACT, EPI>;
-  constexpr int SMEM = T::smem(IN_F32);
-  static const LaunchInfo info = query_launch(kernel, T::NT, SMEM);  // once per kernel
+  auto kernel = conv_h_kernel<T, E, OUT_F32, EPI>;
+  static const LaunchInfo info = query_launch(kernel, T::NT, T::SMEM);  // once per kernel
   ConvGrid grid;
   unsigned blocks;
   const cudaError_t err = plan_conv<T>(info, N, H, W, Cin, Cout, grid, blocks);
   if (err != cudaSuccess || blocks == 0) return err;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x), wa = reinterpret_cast<uintptr_t>(w);
-  if (IN_F32)
-    grid.vec_in = Cin % 4 == 0 && (xa & 15) == 0;
-  else
-    grid.vec_in = (Cin % 8 == 0 && (xa & 15) == 0) ? 2 : (Cin % 2 == 0 && (xa & 3) == 0) ? 1 : 0;
+  grid.vec_in = (Cin % 8 == 0 && (xa & 15) == 0) ? 2 : (Cin % 2 == 0 && (xa & 3) == 0) ? 1 : 0;
   grid.vec_w = (Cin % 8 == 0 && (wa & 15) == 0) ? 2 : (Cin % 2 == 0 && (wa & 3) == 0) ? 1 : 0;
-  kernel<<<blocks, T::NT, SMEM, stream>>>(x, w, y, N, H, W, Cin, Cout, grid, epi);
+  kernel<<<blocks, T::NT, T::SMEM, stream>>>(x, w, y, N, H, W, Cin, Cout, grid, epi);
   return cudaGetLastError();
 }
 
@@ -1029,25 +983,6 @@ template <int KS>
 using WideTileH = ConvTileH<KS, 16, 4, 2, 2, 4>;
 template <int KS>
 using InTileH = ConvTileH<KS, 8, 4, 2, 2, 4>;
-
-// KS x KS conv with 16-bit operands, by the output width: the direct head
-// kernel for 3x3 convs to at most 8 channels, else the tensor-core core.
-template <int KS, class E, bool IN_F32, bool OUT_F32, int ACT, int EPI>
-cudaError_t launch_conv_h(const void* x, const E* w, void* y, int N, int H, int W, int Cin,
-                          int Cout, const EpiArgs& epi, cudaStream_t stream) {
-  using TI = typename std::conditional<IN_F32, float, E>::type;
-  using TO = typename std::conditional<OUT_F32, float, E>::type;
-  if constexpr (KS == 3) {
-    if (Cout <= 8)
-      return launch_conv3x3_head<TI, E, TO, true, ACT, EPI>(
-          static_cast<const TI*>(x), w, static_cast<TO*>(y), N, H, W, Cin, Cout, epi, stream);
-  }
-  if (Cin <= 8)
-    return launch_conv_h_tc<InTileH<KS>, E, IN_F32, OUT_F32, ACT, EPI>(x, w, y, N, H, W, Cin,
-                                                                      Cout, epi, stream);
-  return launch_conv_h_tc<WideTileH<KS>, E, IN_F32, OUT_F32, ACT, EPI>(x, w, y, N, H, W, Cin,
-                                                                      Cout, epi, stream);
-}
 
 // The entry points' dtype codes (ops/cuda_lib.py DTYPE_CODES).  by_dtype
 // calls f(static_cast<E*>(nullptr)) for the 16-bit type E of a code.

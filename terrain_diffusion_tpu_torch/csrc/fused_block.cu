@@ -20,9 +20,9 @@
 // What the design does: the products (both 3x3 convs and the 1x1
 // projection) run on one tensor-core core, conv3x3.cuh (implicit GEMM,
 // 3xTF32, the float32 accuracy of the JAX kernel's Precision.HIGHEST dots).
-// Up to four launches: the gather (step 1-2, and the pixel norm of step 3)
-// is one memory-bound pass over each pixel's channels; the projection is
-// the core with one tap; conv0 applies silu to its staged input tile and
+// Up to five launches: the prep pass (steps 1-2, and the pixel norm of step
+// 3, a second pass after an enc projection) is one memory-bound pass over
+// each pixel's channels; the projection is the core with one tap; conv0 applies silu to its staged input tile and
 // gain + silu in its epilogue (steps 4-5); conv1 applies the residual mix
 // and clip in its epilogue (steps 6, 8, 9).  The intermediates xs and h pass
 // through device memory; the TPU kernel kept them in VMEM.  The TPU-only
@@ -31,92 +31,153 @@
 // is a bounds check.
 //
 // bf16 / fp16 (the Pallas kernel with compute_dtype = x.dtype): the same
-// four launches on the 16-bit core of conv3x3.cuh, rounding where
-// _block_body rounds (see the entry points below).  Bound by the 16-bit
-// tensor cores: FLOPs / 989 TFLOP/s, one pass; xs, h and the output move at
-// 4, 2 and 2 bytes a value.
-#include "conv3x3.cuh"
+// launches, rounding where _block_body rounds (see the entry points below),
+// with the products on the 16-bit wgmma core of conv_wgmma.cuh (TMA-fed,
+// weights kept in shared memory; conv3x3.cuh's mma.sync core for shapes it
+// does not take).  TMA copies without converting, so the prep pass writes
+// the 16-bit operands the convs read: round(silu(xs)) for conv0, round(xs)
+// where a projection follows, and the float32 xs only where the residual
+// needs it.  Bound by the 16-bit tensor cores: FLOPs / 989 TFLOP/s, one
+// pass; the prep pass by its bytes (2 or 4 bytes a value read, 2 + 2 + 4
+// at most written).
+#include "conv_wgmma.cuh"
 
 namespace tdt {
 
-constexpr int PRO_PIX = 8;  // pixels per gather block
-
-// out[p] = norm?(gather(p)) for each output pixel p of (N, H, W).
-// gather: x2 == nullptr -> x scaled by s1 (x at half resolution when
-// pre_up); else concat(x * s1, x2 * s2) along channels.
-// x and x2 are float32 or the 16-bit type of the block (TI); xs is float32
-template <class TI>
-__global__ void __launch_bounds__(256)
-block_gather_kernel(const TI* __restrict__ x, const TI* __restrict__ x2,
-                    float s1, float s2, int pre_up, int norm, float* __restrict__ out,
-                    int N, int H, int W, int Cx) {
-  extern __shared__ float smem[];
-  const int Cg = x2 ? 2 * Cx : Cx;    // gathered channels
-  float* s_in = smem;                 // [PRO_PIX][Cg]
-  float* s_den = s_in + PRO_PIX * Cg;  // [PRO_PIX]
-  const long total = (long)N * H * W;
-  const long pix0 = (long)blockIdx.x * PRO_PIX;
-  const int tid = threadIdx.x;
-  const int Hs = pre_up ? H / 2 : H;
-  const int Ws = pre_up ? W / 2 : W;
-
-  for (int i = tid; i < PRO_PIX * Cg; i += blockDim.x) {
-    const int p = i / Cg;
-    const int c = i % Cg;
-    const long pix = pix0 + p;
-    float v = 0.0f;
-    if (pix < total) {
-      const int n = (int)(pix / ((long)H * W));
-      const int yy = (int)((pix / W) % H);
-      const int xx = (int)(pix % W);
-      const long src = ((long)n * Hs + (pre_up ? yy / 2 : yy)) * Ws +
-                       (pre_up ? xx / 2 : xx);
-      v = c < Cx ? to_f32(x[src * Cx + c]) * s1 : to_f32(x2[src * Cx + (c - Cx)]) * s2;
-    }
-    s_in[i] = v;
-  }
-  __syncthreads();
-
-  if (norm) {
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    for (int p = warp; p < PRO_PIX; p += blockDim.x / 32) {
-      float ss = 0.0f;
-      for (int c = lane; c < Cg; c += 32) ss += s_in[p * Cg + c] * s_in[p * Cg + c];
+// 8 consecutive channels of a row as floats, from 16-byte words
+template <class T>
+__device__ __forceinline__ void load8(float (&v)[8], const T* p) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z,
+    v[7] = b.w;
+  } else {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      if (lane == 0) s_den[p] = 1e-4f + sqrtf(ss / (float)Cg);
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = unpack2(w[k], static_cast<T*>(nullptr));
+      v[2 * k] = f.x, v[2 * k + 1] = f.y;
     }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < PRO_PIX * Cg; i += blockDim.x) {
-    const int p = i / Cg;
-    const long pix = pix0 + p;
-    if (pix >= total) continue;
-    const float v = s_in[i];
-    out[pix * Cg + (i % Cg)] = norm ? v / s_den[p] : v;
   }
 }
 
-}  // namespace tdt
-
-namespace tdt {
-
-template <class TI>
-cudaError_t launch_gather(const TI* x, const TI* x2, float s1, float s2, int pre_up, int norm,
-                          float* out, int N, int H, int W, int Cx, cudaStream_t stream) {
-  const int Cg = x2 ? 2 * Cx : Cx;
-  const size_t smem = sizeof(float) * (PRO_PIX * Cg + PRO_PIX);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        block_gather_kernel<TI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// the first n of 8 values to consecutive elements, as 16-byte words when vec
+template <class E>
+__device__ __forceinline__ void store8(E* p, const float (&v)[8], bool vec, int n) {
+  if (vec) {
+    if constexpr (std::is_same<E, float>::value) {
+      reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      *reinterpret_cast<uint4*>(p) = make_uint4(pack2<E>(v[0], v[1]), pack2<E>(v[2], v[3]),
+                                                pack2<E>(v[4], v[5]), pack2<E>(v[6], v[7]));
+    }
+    return;
   }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (k < n) p[k] = from_f32<E>(v[k]);
+}
+
+// For each output pixel of (N, H, W): v = norm?(gather(pixel)); writes xs = v
+// (float32), xr = round_E(v) and a = round_E(fast_silu(v)), each where its
+// pointer is not null.  gather: x2 == nullptr -> x scaled by s1 (x at half
+// resolution when pre_up); else concat(x * s1, x2 * s2) along channels.
+// x and x2 are float32 or E (TI).  fast_silu is the silu the 16-bit conv
+// core applied to its staged input before the prep pass wrote a.
+// A group of lp lanes (a power of two) owns a pixel, each lane 8
+// consecutive channels at a time: 16-byte loads and stores
+// where vec (Cx % 8 == 0, 16-byte aligned tensors), else element by
+// element; the pixel norm sums over the group with shuffles, then the
+// second pass re-reads the pixel (from L1) to write.
+template <class TI, class E>
+__global__ void __launch_bounds__(256)
+block_prep_kernel(const TI* __restrict__ x, const TI* __restrict__ x2, float s1, float s2,
+                  int pre_up, int norm, float* __restrict__ xs, E* __restrict__ xr,
+                  E* __restrict__ a, int N, int H, int W, int Cx, int lp, int vec) {
+  const int Cg = x2 ? 2 * Cx : Cx;  // gathered channels
+  const int lane = threadIdx.x & 31, sub = lane / lp, gl = lane % lp;
+  const int total = N * H * W;
+  const int pix = ((int)blockIdx.x * 8 + (int)threadIdx.x / 32) * (32 / lp) + sub;
+  const bool live = pix < total;
+  const int Hs = pre_up ? H / 2 : H, Ws = pre_up ? W / 2 : W;
+  int src = 0;
+  if (live) {
+    const int n = pix / (H * W), yy = (pix / W) % H, xx = pix % W;
+    src = (n * Hs + (pre_up ? yy / 2 : yy)) * Ws + (pre_up ? xx / 2 : xx);
+  }
+  // channels [c, c + 8) of the gathered pixel (zeros past Cg)
+  auto gather8 = [&](float (&v)[8], int c) {
+    if (vec) {
+      const bool first = c < Cx;
+      load8(v, first ? x + (size_t)src * Cx + c : x2 + (size_t)src * Cx + (c - Cx));
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] *= first ? s1 : s2;
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int ck = c + k;
+      v[k] = ck >= Cg   ? 0.0f
+             : ck < Cx ? load_f32(x + (size_t)src * Cx + ck) * s1
+                       : load_f32(x2 + (size_t)src * Cx + (ck - Cx)) * s2;
+    }
+  };
+  float den = 1.0f;
+  if (norm) {
+    float ss = 0.0f;
+    if (live)
+      for (int c = gl * 8; c < Cg; c += lp * 8) {
+        float v[8];
+        gather8(v, c);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) ss += v[k] * v[k];
+      }
+    for (int off = lp / 2; off > 0; off /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    den = 1e-4f + sqrtf(ss / (float)Cg);
+  }
+  if (!live) return;
+  for (int c = gl * 8; c < Cg; c += lp * 8) {
+    float v[8];
+    gather8(v, c);
+    if (norm) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = v[k] / den;
+    }
+    const size_t o = (size_t)pix * Cg + c;
+    const int n = Cg - c;
+    if (xs) store8(xs + o, v, vec, n);
+    if (xr) store8(xr + o, v, vec, n);
+    if (a) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = fast_silu(v[k]);
+      store8(a + o, v, vec, n);
+    }
+  }
+}
+
+template <class TI, class E>
+cudaError_t launch_prep(const TI* x, const TI* x2, float s1, float s2, int pre_up, int norm,
+                        float* xs, E* xr, E* a, int N, int H, int W, int Cx,
+                        cudaStream_t stream) {
   const long total = (long)N * H * W;
-  const unsigned blocks = (unsigned)((total + PRO_PIX - 1) / PRO_PIX);
-  block_gather_kernel<TI><<<blocks, 256, smem, stream>>>(x, x2, s1, s2, pre_up, norm, out, N,
-                                                         H, W, Cx);
+  if (total == 0) return cudaSuccess;
+  if (total > 0x7fffffffL) return cudaErrorInvalidValue;
+  const int Cg = x2 ? 2 * Cx : Cx;
+  // lanes per pixel: the largest power of two up to 32 that divides the
+  // pixel's 8-channel groups, so that no lane idles (192 channels: 8 lanes
+  // of 3 groups)
+  const int groups = (Cg + 7) / 8;
+  int lp = 1;
+  while (lp < 32 && groups % (2 * lp) == 0) lp *= 2;
+  auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int vec = Cx % 8 == 0 && a16(x) && a16(x2) && a16(xs) && a16(xr) && a16(a);
+  const long per_block = 8L * (32 / lp);  // 8 warps of 32 / lp pixels
+  const unsigned blocks = (unsigned)((total + per_block - 1) / per_block);
+  block_prep_kernel<TI, E><<<blocks, 256, 0, stream>>>(x, x2, s1, s2, pre_up, norm, xs, xr, a,
+                                                      N, H, W, Cx, lp, vec);
   return cudaGetLastError();
 }
 
@@ -125,31 +186,45 @@ cudaError_t launch_gather(const TI* x, const TI* x2, float s1, float s2, int pre
 // Every entry point takes the block's dtype code (tdt::DT_*).  float32: all
 // tensors float32, weights HWIO / (Cin, Cout).  bf16 / fp16, rounding where
 // the JAX kernel rounds (pallas_block.py::_block_body with compute_dtype =
-// x.dtype): the gather reads the 16-bit x / x2 and writes the float32 xs
-// (what JAX keeps in VMEM); the projection rounds its operand to 16 bits and
-// writes float32; conv0 rounds silu(xs) and writes h = silu(conv * c)
-// rounded to 16 bits; conv1 reads the residual (float32 xs or projection, or
-// the 16-bit x itself where the block neither gathers nor projects) and
-// rounds the output once.  16-bit weights arrive laid out (taps, Cout, Cin).
+// x.dtype): the prep pass reads the 16-bit x / x2 (or the float32
+// projection) and writes the operands the convs read, round(xs) for the
+// projection and a = round(silu(xs)) for conv0, and the float32 xs (what
+// JAX keeps in VMEM) where the residual needs it; the projection writes
+// float32; conv0 writes h = silu(conv * c) rounded to 16 bits; conv1 reads
+// the residual (float32 xs or projection, or the 16-bit x itself where the
+// block neither gathers nor projects) and rounds the output once.  The
+// convs' 16-bit inputs are never float32 (x_f32 / xs_f32 = 0).  16-bit
+// weights arrive laid out (taps, Cout, Cin).
 
-// xs (float32) = gather(x, x2): concat / nearest-up / pixel norm
-extern "C" int tdt_block_gather(const void* x, const void* x2, float s1, float s2,
-                                int pre_up, int norm, float* out, int N, int H, int W,
-                                int Cx, int dtype, void* stream) {
+// prep: xs (float32), xr = round(xs) and a = round(silu(xs)) of
+// gather(x, x2) (concat / nearest-up / pixel norm), each where its pointer
+// is not null; x and x2 are float32 if x_f32 (always in float32 blocks,
+// which write xs only), else 16-bit
+extern "C" int tdt_block_prep(const void* x, const void* x2, int x_f32, float s1, float s2,
+                              int pre_up, int norm, float* xs, void* xr, void* a, int N, int H,
+                              int W, int Cx, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == tdt::DT_F32)
-    return (int)tdt::launch_gather<float>(static_cast<const float*>(x),
-                                          static_cast<const float*>(x2), s1, s2, pre_up, norm,
-                                          out, N, H, W, Cx, s);
+  if (dtype == tdt::DT_F32) {
+    if (!x_f32 || xr || a) return (int)cudaErrorInvalidValue;
+    return (int)tdt::launch_prep<float, float>(static_cast<const float*>(x),
+                                               static_cast<const float*>(x2), s1, s2, pre_up,
+                                               norm, xs, nullptr, nullptr, N, H, W, Cx, s);
+  }
   return (int)tdt::by_dtype(dtype, [&](auto* e) {
     using E = std::remove_pointer_t<decltype(e)>;
-    return tdt::launch_gather<E>(static_cast<const E*>(x), static_cast<const E*>(x2), s1, s2,
-                                 pre_up, norm, out, N, H, W, Cx, s);
+    E* r = static_cast<E*>(xr);
+    E* o = static_cast<E*>(a);
+    if (x_f32)
+      return tdt::launch_prep<float, E>(static_cast<const float*>(x),
+                                        static_cast<const float*>(x2), s1, s2, pre_up, norm, xs,
+                                        r, o, N, H, W, Cx, s);
+    return tdt::launch_prep<E, E>(static_cast<const E*>(x), static_cast<const E*>(x2), s1, s2,
+                                  pre_up, norm, xs, r, o, N, H, W, Cx, s);
   });
 }
 
 // out (float32) = x @ wskip: the 1x1 projection on the conv core with one
-// tap; x is float32 if x_f32 (always in float32 blocks), else 16-bit
+// tap; x is float32 if x_f32 (float32 blocks only), else 16-bit
 extern "C" int tdt_block_proj(const void* x, int x_f32, const void* wskip, float* out, int N,
                               int H, int W, int Cin, int Cout, int dtype, void* stream) {
   tdt::EpiArgs epi = {};
@@ -158,18 +233,18 @@ extern "C" int tdt_block_proj(const void* x, int x_f32, const void* wskip, float
     return (int)tdt::launch_conv<1, tdt::IN_NONE, tdt::EPI_NONE>(
         static_cast<const float*>(x), static_cast<const float*>(wskip), out, N, H, W, Cin,
         Cout, epi, s);
+  if (x_f32) return (int)cudaErrorInvalidValue;
   return (int)tdt::by_dtype(dtype, [&](auto* e) {
     using E = std::remove_pointer_t<decltype(e)>;
-    const E* w = static_cast<const E*>(wskip);
-    return x_f32 ? tdt::launch_conv_h<1, E, true, true, tdt::IN_NONE, tdt::EPI_NONE>(
-                       x, w, out, N, H, W, Cin, Cout, epi, s)
-                 : tdt::launch_conv_h<1, E, false, true, tdt::IN_NONE, tdt::EPI_NONE>(
-                       x, w, out, N, H, W, Cin, Cout, epi, s);
+    return tdt::launch_conv_h<1, E, true, tdt::EPI_NONE>(
+        static_cast<const E*>(x), static_cast<const E*>(wskip), out, N, H, W, Cin, Cout, epi, s);
   });
 }
 
-// h = silu(conv3x3(silu(xs), w0) * c), h in the block's type; xs is float32
-// if xs_f32 (always in float32 blocks), else 16-bit; c is float32
+// h = silu(conv3x3(act(xs), w0) * c), h in the block's type; float32
+// blocks: xs is the float32 xs (xs_f32 = 1) and act is silu; 16-bit blocks:
+// xs is the prep pass's a = round(silu(xs)) (xs_f32 = 0) and act is none;
+// c is float32
 extern "C" int tdt_block_conv0(const void* xs, int xs_f32, const void* w0, const float* c,
                                void* h, int N, int H, int W, int Cin, int Cmid, int dtype,
                                void* stream) {
@@ -180,13 +255,11 @@ extern "C" int tdt_block_conv0(const void* xs, int xs_f32, const void* w0, const
     return (int)tdt::launch_conv<3, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
         static_cast<const float*>(xs), static_cast<const float*>(w0), static_cast<float*>(h), N,
         H, W, Cin, Cmid, epi, s);
+  if (xs_f32) return (int)cudaErrorInvalidValue;
   return (int)tdt::by_dtype(dtype, [&](auto* e) {
     using E = std::remove_pointer_t<decltype(e)>;
-    const E* w = static_cast<const E*>(w0);
-    return xs_f32 ? tdt::launch_conv_h<3, E, true, false, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
-                        xs, w, h, N, H, W, Cin, Cmid, epi, s)
-                  : tdt::launch_conv_h<3, E, false, false, tdt::IN_SILU, tdt::EPI_GAIN_SILU>(
-                        xs, w, h, N, H, W, Cin, Cmid, epi, s);
+    return tdt::launch_conv_h<3, E, false, tdt::EPI_GAIN_SILU>(
+        static_cast<const E*>(xs), static_cast<const E*>(w0), h, N, H, W, Cin, Cmid, epi, s);
   });
 }
 
@@ -215,7 +288,7 @@ extern "C" int tdt_block_conv1(const void* h, const void* w1, const void* xres, 
         N, H, W, Cmid, Cout, epi, s);
   return (int)tdt::by_dtype(dtype, [&](auto* e) {
     using E = std::remove_pointer_t<decltype(e)>;
-    return tdt::launch_conv_h<3, E, false, false, tdt::IN_NONE, tdt::EPI_RESIDUAL>(
-        h, static_cast<const E*>(w1), out, N, H, W, Cmid, Cout, epi, s);
+    return tdt::launch_conv_h<3, E, false, tdt::EPI_RESIDUAL>(
+        static_cast<const E*>(h), static_cast<const E*>(w1), out, N, H, W, Cmid, Cout, epi, s);
   });
 }

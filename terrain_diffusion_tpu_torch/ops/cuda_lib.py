@@ -28,23 +28,24 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SOURCES = ("conv3x3.cu", "fused_block.cu", "attention.cu")
-_HEADERS = ("conv3x3.cuh",)
+_HEADERS = ("conv3x3.cuh", "conv_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (every entry point returns a cudaError_t,
-# but tdt_attention_path, which returns the attention's dispatch rule).
+# but tdt_attention_path and tdt_conv16_path, which return dispatch rules).
 # Each kernel entry takes the dtype code (DTYPE_CODES) of the activations it
 # runs on, just before the stream.
 _SIGNATURES = {
     "tdt_conv3x3": [P, P, P, I, I, I, I, I, I, P],
-    "tdt_block_gather": [P, P, F, F, I, I, P, I, I, I, I, I, P],
+    "tdt_block_prep": [P, P, I, F, F, I, I, P, P, P, I, I, I, I, I, P],
     "tdt_block_proj": [P, I, P, P, I, I, I, I, I, I, P],
     "tdt_block_conv0": [P, I, P, P, P, I, I, I, I, I, I, P],
     "tdt_block_conv1": [P, P, P, I, P, I, I, I, I, I, F, F, F, I, F, I, P],
     "tdt_pixelnorm_attention": [P, P, I, I, I, I, F, I, P],
     "tdt_attention_path": [I],
+    "tdt_conv16_path": [I, I, I],
 }
 # The types the kernels take, by their dtype code (csrc/conv3x3.cuh: DT_F32,
 # DT_BF16, DT_F16): float32 runs the 3xTF32 kernels, bf16 and fp16 the

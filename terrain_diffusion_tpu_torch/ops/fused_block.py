@@ -7,21 +7,25 @@ plain PyTorch versions.
 - ``conv3x3``: a SAME-padded 3x3 conv with a prepared HWIO weight
   (``csrc/conv3x3.cu``), the counterpart of ``fused_conv3x3_apply``.
 
-Both run their 3x3 convs and the block's 1x1 projection on one tensor-core
-conv core (``csrc/conv3x3.cuh``); a conv to at most 8 channels (the 64 -> 1
-head) runs a direct conv on the CUDA cores.  The activations' type picks the
-form, as ``x.dtype`` does for the Pallas kernels:
+Both run their 3x3 convs and the block's 1x1 projection on a tensor-core
+conv core; a conv to at most 8 channels (the 64 -> 1 head) runs a direct
+conv on the CUDA cores.  The activations' type picks the form, as
+``x.dtype`` does for the Pallas kernels:
 
-- float32: implicit GEMM in 3xTF32, float32 in and out (the JAX kernels'
-  Precision.HIGHEST dots).  Bound on the H100 by 3 x FLOPs / 495 TFLOP/s.
-- bfloat16 or float16: one pass of 16-bit ``mma.sync`` with float32 sums
-  (the JAX kernels' native MXU passes).  The weights (float32 parameters)
-  are scaled in float32 and then rounded; the block rounds where
-  ``pallas_block.py::_block_body`` rounds: the gather, pixel norm and
-  residual ``xres`` stay float32, the projection's operand, ``silu(xs)``,
-  ``h`` and the output are rounded to the 16-bit type, and the gain ``c``
-  stays float32.  Bound by FLOPs / 989 TFLOP/s (the in conv and the head by
-  their bytes).  Any other type raises TypeError.
+- float32: implicit GEMM in 3xTF32 on ``mma.sync`` (``csrc/conv3x3.cuh``),
+  float32 in and out (the JAX kernels' Precision.HIGHEST dots).  Bound on
+  the H100 by 3 x FLOPs / 495 TFLOP/s.
+- bfloat16 or float16: one pass of 16-bit products with float32 sums (the
+  JAX kernels' native MXU passes), on the ``wgmma`` core fed by TMA
+  (``csrc/conv_wgmma.cuh``) for ``Cin % 16 == 0`` and ``Cout % 64 == 0``,
+  else on a 16-bit ``mma.sync`` core; ``conv16_path`` says which.  The
+  weights (float32 parameters) are scaled in float32 and then rounded; the
+  block rounds where ``pallas_block.py::_block_body`` rounds: the gather,
+  pixel norm and residual ``xres`` stay float32, the projection's operand,
+  ``silu(xs)``, ``h`` and the output are rounded to the 16-bit type, and
+  the gain ``c`` stays float32.  The block's prep pass writes the rounded
+  operands the convs read.  Bound by FLOPs / 989 TFLOP/s (the in conv and
+  the head by their bytes).  Any other type raises TypeError.
 
 ``fused_block_reference`` / ``conv3x3_reference`` take the same arguments
 and compute the same math, rounding at the same points, with ``F.conv2d``
@@ -48,6 +52,47 @@ INV_SILU_GAIN = 1.0 / 0.596  # mp_silu divisor, folded into the conv weights
 
 
 # ---------------------------------------------------------------------------
+# the 16-bit conv core's dispatch rule
+# ---------------------------------------------------------------------------
+
+# csrc/conv_wgmma.cuh: Conv16Path codes, and the rule's constants
+CONV16_PATHS = ("head", "mma_sync", "wgmma_resident", "wgmma_streamed")
+WGMMA_CK, WGMMA_BN, WGMMA_RESIDENT_CHUNK_TAPS = 64, 64, 18
+
+
+def conv16_path(ks: int, cin: int, cout: int) -> str:
+    """The core a 16-bit ``ks`` x ``ks`` conv from ``cin`` to ``cout``
+    channels runs on the card (the C chooser's rule, ``tdt_conv16_path``):
+    "head" (3x3 to at most 8 channels, CUDA cores), "wgmma_resident" /
+    "wgmma_streamed" (the wgmma core, for cin % 16 == 0 and cout % 64 == 0,
+    with the weights kept in shared memory where ks * ks * ceil(cin / 64) <=
+    18, else streamed with the input; a 1x1 conv streams never), else
+    "mma_sync"."""
+    if ks == 3 and cout <= 8:
+        return "head"
+    if cin % 16 or cout % WGMMA_BN:
+        return "mma_sync"
+    if ks * ks * -(-cin // WGMMA_CK) <= WGMMA_RESIDENT_CHUNK_TAPS:
+        return "wgmma_resident"
+    return "wgmma_streamed" if ks == 3 else "mma_sync"
+
+
+def library_conv16_path(ks: int, cin: int, cout: int) -> str:
+    """The core the built library's chooser gives the same conv
+    (``tdt_conv16_path``); builds the library."""
+    return CONV16_PATHS[load().tdt_conv16_path(ks, cin, cout)]
+
+
+def _check_tma(name: str, t: torch.Tensor, ks: int, cin: int, cout: int):
+    """The wgmma core reads its 16-bit input and weight through TMA, which
+    takes 16-byte aligned rows: raise ValueError for a tensor off that
+    alignment (cin % 16 == 0 makes every row a multiple of 16 bytes)."""
+    if conv16_path(ks, cin, cout).startswith("wgmma") and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned: the wgmma conv core reads it "
+                         "through TMA")
+
+
+# ---------------------------------------------------------------------------
 # conv3x3
 # ---------------------------------------------------------------------------
 
@@ -61,11 +106,18 @@ def _rounding(dtype):
     return ct, lambda t: t.to(dtype).to(ct)
 
 
-def _k_major(w: torch.Tensor, dtype) -> torch.Tensor:
-    """A (KS, KS, Cin, Cout) weight as the 16-bit kernels take it: rounded to
-    ``dtype``, (KS * KS, Cout, Cin) with K contiguous."""
+def _k_major(w: torch.Tensor, dtype, scale=None) -> torch.Tensor:
+    """A (KS, KS, Cin, Cout) weight as the 16-bit kernels take it: times
+    ``scale`` in float32 where given, rounded to ``dtype``, (KS * KS, Cout,
+    Cin) with K contiguous; one pass over the weight."""
     ks, _, cin, cout = w.shape
-    return w.to(dtype).permute(0, 1, 3, 2).reshape(ks * ks, cout, cin).contiguous()
+    out = torch.empty((ks, ks, cout, cin), device=w.device, dtype=dtype)
+    src = w.permute(0, 1, 3, 2)
+    if scale is None:
+        out.copy_(src)
+    else:  # the product in float32, rounded once as it is stored
+        torch.mul(src.float(), scale, out=out)
+    return out.view(ks * ks, cout, cin)
 
 
 def _check_weight(name, w, x, ndim):
@@ -97,6 +149,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if tuple(w.shape[:3]) != (3, 3, Cin):
         raise ValueError(f"w shape {tuple(w.shape)} does not fit x {tuple(x.shape)}")
     Cout = w.shape[3]
+    if dt != torch.float32:
+        _check_tma("x", x, 3, Cin, Cout)
     lib = load()
     y = torch.empty((N, H, W, Cout), device=x.device, dtype=dt)
     wk = w if dt == torch.float32 else _k_major(w, dt)
@@ -217,61 +271,81 @@ def fused_block(x, w0, w1, c, wskip=None, x2=None, *, mode="enc",
                          f"x {tuple(x.shape)}, w0 {tuple(w0.shape)}, "
                          f"w1 {tuple(w1.shape)}, wskip "
                          f"{None if wskip is None else tuple(wskip.shape)}")
+    gathered = x2 is not None or u == 2
+    half = dt != torch.float32
+    if half and wskip is not None and not gathered:  # the projection reads x itself
+        _check_tma("x", x, 1, Cg, Cout)
     if c is None:
         c = torch.ones((N, Cmid), device=dev, dtype=torch.float32)
     check_input("c", c, dev, 2)
     if tuple(c.shape) != (N, Cmid):
         raise ValueError(f"c shape {tuple(c.shape)} != {(N, Cmid)}")
-    w0 = w0.float() * INV_SILU_GAIN
-    w1 = w1.float() * INV_SILU_GAIN
-    if dt != torch.float32:  # rounded after the scaling, laid out K-major
-        w0, w1 = _k_major(w0, dt), _k_major(w1, dt)
-        if wskip is not None:
-            wskip = wskip.to(dt).t().contiguous()  # (Cout, Cin): one tap, K-major
+    if half:  # rounded after the scaling, laid out K-major
+        w0, w1 = _k_major(w0, dt, INV_SILU_GAIN), _k_major(w1, dt, INV_SILU_GAIN)
+        if wskip is not None:  # (Cout, Cin): one tap, K-major
+            wskip = torch.empty((Cout, Cg), device=dev, dtype=dt).copy_(wskip.t())
     else:
-        w0, w1 = w0.contiguous(), w1.contiguous()
+        w0 = (w0.float() * INV_SILU_GAIN).contiguous()
+        w1 = (w1.float() * INV_SILU_GAIN).contiguous()
     code = DTYPE_CODES[dt]
     lib = load()
     strm = stream(dev)
+    f32 = torch.float32
 
-    def gather(src, src2, up, norm):
-        """concat / nearest-up / pixel norm: one memory-bound pass, float32 out"""
-        c_src = src.shape[3]
-        out = torch.empty((N, H, W, 2 * c_src if src2 is not None else c_src),
-                          device=dev, dtype=torch.float32)
-        check_rc(lib.tdt_block_gather(
-            src.data_ptr(), ptr(src2), s1 if src2 is not None else 1.0, s2, int(up == 2),
-            int(norm), out.data_ptr(), N, H, W, c_src, DTYPE_CODES[src.dtype], strm),
-            "fused_block gather")
-        return out
+    def prep(src, src2, up, norm, xs=False, xr=False, a=False):
+        """concat / nearest-up / pixel norm: one memory-bound pass that
+        writes the float32 xs and, in a 16-bit block, the operands round(xs)
+        and round(silu(xs)), each where asked"""
+        c_out = 2 * src.shape[3] if src2 is not None else src.shape[3]
+        outs = [torch.empty((N, H, W, c_out), device=dev, dtype=t) if want else None
+                for want, t in ((xs, f32), (xr, dt), (a, dt))]
+        check_rc(lib.tdt_block_prep(
+            src.data_ptr(), ptr(src2), int(src.dtype == f32), s1 if src2 is not None else 1.0,
+            s2, int(up == 2), int(norm), *map(ptr, outs), N, H, W, src.shape[3], code, strm),
+            "fused_block prep")
+        return outs
 
     def project(src):
         """the 1x1 projection on the tensor-core conv core, float32 out"""
-        out = torch.empty((N, H, W, Cout), device=dev, dtype=torch.float32)
+        out = torch.empty((N, H, W, Cout), device=dev, dtype=f32)
         check_rc(lib.tdt_block_proj(
-            src.data_ptr(), int(src.dtype == torch.float32), wskip.data_ptr(), out.data_ptr(),
+            src.data_ptr(), int(src.dtype == f32), wskip.data_ptr(), out.data_ptr(),
             N, H, W, src.shape[3], Cout, code, strm), "fused_block projection")
         return out
 
-    gathered = x2 is not None or u == 2
-    if mode == "enc" and wskip is None:
-        xs = gather(x, x2, u, pixel_norm) if (gathered or pixel_norm) else x
-        xres = xs
+    if not half:  # conv0 applies silu to the float32 xs
+        if mode == "enc" and wskip is None:
+            xs = prep(x, x2, u, pixel_norm, xs=True)[0] if (gathered or pixel_norm) else x
+            xres = xs
+        elif mode == "enc":
+            xs = project(prep(x, x2, u, False, xs=True)[0] if gathered else x)
+            xres = xs = prep(xs, None, 1, True, xs=True)[0] if pixel_norm else xs
+        else:
+            xs = prep(x, x2, u, False, xs=True)[0] if gathered else x
+            xres = project(xs) if wskip is not None else xs
+        a = xs
+    elif mode == "enc" and wskip is None:  # 16-bit: conv0 reads a = round(silu(xs))
+        keep = gathered or pixel_norm
+        xs, _, a = prep(x, x2, u, pixel_norm, xs=keep, a=True)
+        xres = xs if keep else x
     elif mode == "enc":
-        xs = project(gather(x, x2, u, False) if gathered else x)
-        xres = xs = gather(xs, None, 1, True) if pixel_norm else xs
+        p = project(prep(x, x2, u, False, xr=True)[1] if gathered else x)
+        xs, _, a = prep(p, None, 1, pixel_norm, xs=pixel_norm, a=True)
+        xres = xs if pixel_norm else p
     else:
-        xs = gather(x, x2, u, False) if gathered else x
-        xres = project(xs) if wskip is not None else xs
+        proj = wskip is not None
+        xs, xr, a = prep(x, x2, u, False, xs=gathered and not proj, xr=gathered and proj,
+                         a=True)
+        xres = project(xr if gathered else x) if proj else (xs if gathered else x)
     h = torch.empty((N, H, W, Cmid), device=dev, dtype=dt)
     out = torch.empty((N, H, W, Cout), device=dev, dtype=dt)
-    a, b, norm = _residual_coeffs(res_balance)
+    res_a, res_b, res_norm = _residual_coeffs(res_balance)
     check_rc(lib.tdt_block_conv0(
-        xs.data_ptr(), int(xs.dtype == torch.float32), w0.data_ptr(), c.data_ptr(),
-        h.data_ptr(), N, H, W, xs.shape[3], Cmid, code, strm), "fused_block conv0")
+        a.data_ptr(), int(a.dtype == f32), w0.data_ptr(), c.data_ptr(), h.data_ptr(), N, H, W,
+        a.shape[3], Cmid, code, strm), "fused_block conv0")
     check_rc(lib.tdt_block_conv1(
-        h.data_ptr(), w1.data_ptr(), xres.data_ptr(), int(xres.dtype == torch.float32),
-        out.data_ptr(), N, H, W, Cmid, Cout, a, b, norm, int(clip_act is not None),
+        h.data_ptr(), w1.data_ptr(), xres.data_ptr(), int(xres.dtype == f32), out.data_ptr(),
+        N, H, W, Cmid, Cout, res_a, res_b, res_norm, int(clip_act is not None),
         float(clip_act) if clip_act is not None else 0.0, code, strm), "fused_block conv1")
     count_launch(fused_block, dt)
     return out

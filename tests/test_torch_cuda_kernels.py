@@ -11,6 +11,10 @@ float64 on the CPU.  Shapes are small and deliberately ragged (maps that are
 not a multiple of the 8 x 16 pixel tile, channel counts off the tile
 widths: Cin 5, 6, 33, Cout 1, 3, 8, 40).
 
+The 16-bit conv core on wgmma (``test_wgmma_core*``) is driven through the
+block's C entry points with each epilogue, at every block width pair the
+decoder sends, against the same products in float32 on the card.
+
 The 16-bit forms (``*_16bit`` tests) take bf16 or fp16 activations:
 against the plain version on the same inputs the bar is 1e-2 for bf16 and
 2.5e-3 for fp16 (about 2.5 steps of the type at the largest value: both
@@ -268,6 +272,111 @@ def test_attention_kernel_16bit(dev, half, shape, heads):
     assert attention.fused_pixelnorm_attention.launches == before + 1
     exact = attention.pixelnorm_attention_reference(qkv.double().cpu(), heads)
     _check16(got, attention.pixelnorm_attention_reference(qkv, heads), exact, half)
+
+
+DECODER_WIDTHS = [(cin, cout) for cin in (64, 128, 192, 256, 320, 384, 448)
+                  for cout in (64, 128, 192, 256)]
+
+
+def _core_case(dev, half, n, h, w, cin, cout, seed):
+    """Each of the 16-bit conv core's forms on one input, through the C
+    entry points, against the same products summed in float32 on the card:
+    the 1x1 projection (float32 out), conv0's gain + silu, conv1's residual
+    mix + clip with a float32 and a 16-bit residual (16-bit out), and the
+    standalone 3x3 conv."""
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.load()
+    code, strm = cuda_lib.DTYPE_CODES[half], cuda_lib.stream(dev)
+    g = torch.Generator().manual_seed(seed)
+    x = _rand(g, (n, h, w, cin), dev).to(half)
+    w1x1 = (_rand(g, (1, cout, cin), dev, cin ** -0.5)).to(half)
+    w3 = (_rand(g, (9, cout, cin), dev, (9 * cin) ** -0.5)).to(half)
+    c = _rand(g, (n, cout), dev, 0.3) + 1.0
+    res = _rand(g, (n, h, w, cout), dev)
+    y3 = torch.nn.functional.conv2d(
+        x.float().permute(0, 3, 1, 2), w3.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+
+    proj = torch.empty((n, h, w, cout), device=dev)
+    assert lib.tdt_block_proj(x.data_ptr(), 0, w1x1.data_ptr(), proj.data_ptr(), n, h, w, cin,
+                              cout, code, strm) == 0
+    hmid = torch.empty((n, h, w, cout), device=dev, dtype=half)
+    assert lib.tdt_block_conv0(x.data_ptr(), 0, w3.data_ptr(), c.data_ptr(), hmid.data_ptr(),
+                               n, h, w, cin, cout, code, strm) == 0
+    a, b, norm = fb._residual_coeffs(0.3)
+    clip = 0.5 * float(y3.abs().max())  # clips some outputs
+    outs = {}
+    for name, r in (("f32", res), ("16", res.to(half))):
+        outs[name] = torch.empty((n, h, w, cout), device=dev, dtype=half)
+        assert lib.tdt_block_conv1(x.data_ptr(), w3.data_ptr(), r.data_ptr(),
+                                   int(r.dtype == torch.float32), outs[name].data_ptr(), n, h, w,
+                                   cin, cout, a, b, norm, 1, clip, code, strm) == 0
+    conv = fb.conv3x3(x, w3.reshape(3, 3, cout, cin).permute(0, 1, 3, 2).contiguous())
+    torch.cuda.synchronize()
+
+    assert _rel(proj, x.float() @ w1x1[0].float().t()) < TOL
+    want = fb._silu(y3 * c[:, None, None, :])
+    assert _rel(hmid.float(), want.to(half).float()) < TOL16[half]
+    for name, r in (("f32", res), ("16", res.to(half).float())):
+        want = torch.clamp((r * a + y3 * b) / norm, -clip, clip)
+        assert _rel(outs[name].float(), want.to(half).float()) < TOL16[half], name
+    assert conv.dtype == half and _rel(conv.float(), y3.to(half).float()) < TOL16[half]
+
+
+@pytest.mark.parametrize("cin,cout", DECODER_WIDTHS)
+@HALF
+def test_wgmma_core(dev, half, cin, cout):
+    """Every decoder block width pair, KS 1 and 3, each epilogue; the map is
+    off both tiles (8 x 16 and 16 x 16 pixels)."""
+    assert fb.conv16_path(3, cin, cout).startswith("wgmma")
+    assert fb.conv16_path(1, cin, cout) == "wgmma_resident"
+    _core_case(dev, half, 2, 20, 36, cin, cout, seed=cin + cout)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 13, 50, 64, 64),     # ragged in both axes, weights resident
+    (2, 33, 17, 128, 128),   # two K chunks resident, two Cout slices
+    (16, 24, 40, 64, 64),    # batch 16
+    (1, 40, 24, 192, 192),   # streamed; 3 Cout slices: the grid rounds to a multiple of 3
+    (16, 9, 9, 256, 64),     # streamed, b16 maps smaller than one tile
+    (2, 7, 130, 320, 256),   # 5 K chunks, a last column tile of 2 pixels
+    (1, 64, 64, 48, 64),     # a K chunk past Cin: TMA fills channels 48..63 with zeros
+    (1, 5, 3, 16, 64),       # one pixel tile, 16 channels
+])
+@HALF
+def test_wgmma_core_shapes(dev, half, n, h, w, cin, cout):
+    """Maps that are not multiples of the tile, batches 1, 2 and 16, Cout
+    slices that do not divide the SMs' persistent grid evenly, and Cin off
+    the 64-channel chunk."""
+    _core_case(dev, half, n, h, w, cin, cout, seed=7)
+
+
+def test_conv16_paths(dev):
+    """The built library's 16-bit conv chooser equals ``conv16_path``."""
+    for ks in (1, 3):
+        for cin in range(1, 600):
+            for cout in (1, 3, 8, 9, 40, 63, 64, 96, 128, 192, 256, 320, 512):
+                assert fb.library_conv16_path(ks, cin, cout) == fb.conv16_path(ks, cin, cout), \
+                    (ks, cin, cout)
+
+
+@HALF
+def test_wgmma_core_rejects_a_misaligned_input(dev, half):
+    """TMA reads 16-byte aligned rows: a 16-bit input 2 bytes off raises
+    ValueError in the wrapper before any launch, in the conv and in the
+    block's projection."""
+    buf = torch.zeros(1 * 16 * 16 * 64 + 1, device=dev, dtype=half)
+    x = buf[1:].view(1, 16, 16, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    w = torch.zeros((3, 3, 64, 64), device=dev)
+    before = (fb.conv3x3.launches, fb.fused_block.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        fb.conv3x3(x, w)
+    with pytest.raises(ValueError, match="aligned"):
+        fb.fused_block(x, w, w, None, torch.zeros((64, 64), device=dev), mode="dec",
+                       pixel_norm=False)
+    assert (fb.conv3x3.launches, fb.fused_block.launches) == before
 
 
 def test_kernels_route_by_dtype(dev):
