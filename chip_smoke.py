@@ -79,15 +79,34 @@ Phases, each of which exits non-zero on failure:
    of phase 6: a cold 256x256 tile, the same again (byte-identical), four
    adjacent cold tiles at once, with the cold tile's relative RMSE against
    phase 6's float32 tile.
+8. training (``terrain_diffusion_tpu_torch.training``): ``run_training`` on
+   the shipped configs, float32 with TF32 off, with in-memory datasets made
+   from the seed in the item layout of the HDF5 datasets (no h5py on the
+   card) and the unused val / sweep / results dataset sections dropped:
+   ``diffusion_decoder_64-3.cfg`` at its batch 32, 128x128 crops, random
+   init, 6 steps; ``consistency_decoder_64-3.cfg`` at its batch 16 with the
+   diffusion run's saved model as teacher and a random ``decoder_32-3``
+   guide, 4 steps; ``diffusion_192-3.cfg`` at its batch 48, 64x64 crops,
+   dropout 0.1, 3 steps.  Each run prints ms per step (steps 3 on), images/s,
+   peak GiB, loss and grad_norm (finite), FLOPs per step and the bound at 67
+   TFLOP/s, and its kernel launches: the consistency run's equal its steps x
+   (teacher + guide top-level blocks, in conv and head), the others launch
+   none.  Then one diffusion and one consistency step at b2 on the card (the
+   teacher and guide through the kernels) and on the CPU, same weights,
+   batch and draws: loss, grad_norm, F_theta_grad and the updated weights
+   within 1e-4 relative.  The kernel phase holds the training shapes too:
+   the 64- and 32-channel top-level blocks and the in conv and head at
+   128x128 b16.
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
 forwards, conv launches = 2 x decoder forwards, every one in the phase's
-type.
+type.  The training phase zeroes them before each run.
 
 The last lines are a JSON kernel report (a row per kernel and type:
-launches from the Minecraft phase in that type), the card's name and power
-limit, and {"ok": true, "device": {...}}.
+launches from the Minecraft phase in that type, ``training_launches`` from
+the consistency run), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 import configparser
 import copy
@@ -319,8 +338,8 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
                     work=block_work(*args, **kw),
                     unit="3xtf32" if dtype == torch.float32 else "bf16")
 
-    def conv_case(n, cin, cout, dtype=torch.float32):
-        x, wt = rand(n, 512, 512, cin).to(dtype), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    def conv_case(n, cin, cout, dtype=torch.float32, size=512):
+        x, wt = rand(n, size, size, cin).to(dtype), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
         xv, w_oihw = x.permute(0, 3, 1, 2), wt.to(dtype).permute(3, 2, 0, 1).contiguous()
         return dict(run=lambda: fb.conv3x3(x, wt), ref=lambda: fb.conv3x3_reference(x, wt),
                     exact=lambda: fb.conv3x3_reference(*exact((x, wt))),
@@ -363,6 +382,18 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
         ("conv3x3", "in conv 512x512 6->64 b16", conv_case(16, 6, 64)),
         ("conv3x3", "out conv 512x512 64->1 b16", conv_case(16, 64, 1)),
     ]
+    for c in (64, 32):  # the training path: consistency teacher (64) and guide (32) at 128x128
+        cases += [
+            ("fused_block", f"train enc 128x128 {c}->{c} b16", block_case(16, 128, c, c, "enc")),
+            ("fused_block", f"train dec 128x128 pre-up {2 * c} b16",
+             block_case(16, 64, 2 * c, 2 * c, "dec", up=2)),
+            ("fused_block", f"train dec 128x128 proj {3 * c}->{c} b16",
+             block_case(16, 128, 3 * c, c, "dec", proj=True)),
+            ("fused_block", f"train dec 128x128 x2-concat {c}+{c}->{c} b16",
+             block_case(16, 128, c, c, "dec", x2=True, proj=True)),
+            ("conv3x3", f"train in conv 128x128 6->{c} b16", conv_case(16, 6, c, size=128)),
+            ("conv3x3", f"train out conv 128x128 {c}->1 b16", conv_case(16, c, 1, size=128)),
+        ]
     cases += [("attention", f"midblock 8x8 12x64 b{n}", attn_case((n, 8, 8, 2304), 12))
               for n in (1, 16, 64)]
     cases += [("attention", "jax test 8x8 1x64 b2", attn_case((2, 8, 8, 192), 1)),
@@ -1099,6 +1130,325 @@ def minecraft_phase_bf16(torch, np, cuda_lib, fb, attn, dev, world_dir, f32_tile
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-4  # card vs CPU training step, relative (TF32 off)
+DECODER_CFG = "configs/diffusion_decoder/diffusion_decoder_64-3.cfg"
+CONSISTENCY_CFG = "configs/diffusion_decoder/consistency_decoder_64-3.cfg"
+GUIDE_CFG = "configs/diffusion_decoder/diffusion_decoder_32-3.cfg"
+BASE_CFG = "configs/diffusion_base/diffusion_192-3.cfg"
+UNUSED_SECTIONS = ("val_dataset", "sweep_dataset", "results_dataset")  # not read by a short run
+
+
+class MemoryDataset:
+    """Training items made from a seed with numpy, in the item layout of the
+    port's HDF5 datasets (no h5py on the card): ``decoder`` as
+    ``H5DecoderTerrainDataset`` gives them (image = the residual crop times
+    sigma_data, (crop, crop, 1); cond_img = the nearest-up x8 latent sample,
+    (crop, crop, 4)), ``latents`` as ``H5LatentsDataset`` (image = 4 latent
+    channels + lowfreq, (crop, crop, 5); cond_inputs = [the 58-dim vector])."""
+
+    def __init__(self, kind, crop_size, seed, n_items=64, sigma_data=0.5):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.kind, self.n = kind, n_items
+        if kind == "decoder":
+            lat = rng.standard_normal((n_items, crop_size // 8, crop_size // 8, 4), np.float32)
+            self.cond = np.repeat(np.repeat(lat, 8, axis=1), 8, axis=2)
+            self.image = rng.standard_normal((n_items, crop_size, crop_size, 1),
+                                             np.float32) * sigma_data
+        else:
+            self.image = rng.standard_normal((n_items, crop_size, crop_size, 5),
+                                             np.float32) * sigma_data
+            self.cond = rng.standard_normal((n_items, 58), np.float32)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if self.kind == "decoder":
+            return {"image": self.image[i], "cond_img": self.cond[i], "cond_inputs": [],
+                    "path": f"memory/{i}"}
+        return {"image": self.image[i], "cond_inputs": [self.cond[i]], "path": f"memory/{i}"}
+
+
+def register_memory_datasets():
+    from terrain_diffusion_tpu_torch.training.registry import build_registry, dataset_registry
+
+    build_registry()
+    for kind in ("decoder", "latents"):
+        dataset_registry.register(f"chip_smoke_{kind}")(
+            lambda crop_size, seed, _k=kind: MemoryDataset(_k, crop_size, seed))
+
+
+def unet_forward_flops(model, n, h, w) -> float:
+    """FLOPs of one U-Net forward at (n, h, w): every 3x3 and 1x1 conv
+    (2 x weights x output pixels) and the attention products; the embedding
+    linears and elementwise work are left out."""
+    scale = h / model.config.image_size
+    total = 2 * model.out_conv.weight.numel() * n * h * w
+    for plan, mods in ((model.enc_plan, model.enc), (model.dec_plan, model.dec)):
+        for name, kind, *_ in plan:
+            res = int(name.split("x")[0]) * scale
+            mod = mods[name]
+            convs = [mod.weight] if kind == "conv" else [p for p in mod.parameters()
+                                                         if p.dim() == 4]
+            total += sum(2 * wt.numel() * n * res * res for wt in convs)
+            if kind != "conv" and mod.num_heads > 0:
+                total += 4 * n * (res * res) ** 2 * mod.conv_res1.weight.shape[0]
+    return total
+
+
+def top_level_launches(model) -> dict:
+    """Kernel launches of one forward at a crop of 128 x 128 pixels: only the
+    top level's blocks (names of the image_size level) reach 128 x 128, plus
+    the in conv and the head."""
+    top = f"{model.config.image_size}x{model.config.image_size}_"
+    n = sum(1 for name, kind, *_ in model.enc_plan + model.dec_plan
+            if kind == "block" and name.startswith(top))
+    return {"fused_block": n, "conv3x3": 2, "attention": 0}
+
+
+def run_config(torch, cuda_lib, fb, attn, rel, save_dir, overrides, steps, label):
+    """``run_training`` on a shipped config with ``overrides``, log_every=1;
+    returns (trainer, the metrics lines, launches, peak GiB)."""
+    from terrain_diffusion_tpu_torch.training.registry import apply_overrides, load_config
+    from terrain_diffusion_tpu_torch.training.train import run_training
+
+    config = load_config(os.path.join(ROOT, rel))
+    for section in UNUSED_SECTIONS:
+        config.pop(section, None)
+    apply_overrides(config, [f"logging.save_dir={json.dumps(save_dir)}", *overrides])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, _, counters = run_training(config, max_steps=steps, log_every=1, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches,
+                "attention": attn.fused_pixelnorm_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f if '"loss"' in ln]
+    check(counters["step"] == steps and len(lines) == steps,
+          f"{label}: {counters['step']} steps, {len(lines)} metrics lines, not {steps}")
+    for ln in lines:
+        check(math.isfinite(ln["loss"]) and math.isfinite(ln["grad_norm"]),
+              f"{label}: step {ln['step']} loss {ln['loss']} grad_norm {ln['grad_norm']}")
+    print(f"[train] {label}: run_training {steps} steps in {wall:.1f} s (model build, data and "
+          f"checkpoint included)", flush=True)
+    return trainer, lines, launches, peak
+
+
+def report_run(label, lines, launches, peak, batch, crop, step_flops):
+    steady = [ln["step_ms"] for ln in lines[2:]]
+    ms = sum(steady) / len(steady)
+    bound = step_flops / F32_FLOPS * 1e3
+    steps = len(lines)
+    per_step = {k: v / steps for k, v in launches.items()}
+
+    def series(key, fmt):
+        return ", ".join(format(ln[key], fmt) for ln in lines)
+
+    print(f"[train] {label}: b{batch} {crop}x{crop}: {ms:.1f} ms/step over steps 3-{steps} "
+          f"(all steps {series('step_ms', '.1f')}), {batch / ms * 1e3:.1f} images/s, "
+          f"peak {peak:.2f} GiB, loss {series('loss', '.4g')}, grad_norm "
+          f"{series('grad_norm', '.4g')}, {step_flops / 1e12:.2f} TFLOP/step, bound "
+          f"{bound:.1f} ms at 67 TFLOP/s ({bound / ms:.1%}), kernel launches/step {per_step}",
+          flush=True)
+    return dict(ms=ms, images_s=batch / ms * 1e3, peak_gib=peak, tflop=step_flops / 1e12,
+                bound_ms=bound, launches=launches)
+
+
+def lively(torch, model, seed):
+    """Non-zero block gains and out gain (an init leaves them at 0, where a
+    model's output is 0): the card-vs-CPU step then tests every weight."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("emb_gain"):
+                p.copy_(torch.randn((), generator=g) * 0.5)
+            elif name == "out_gain":
+                p.fill_(1.0)
+    return model
+
+
+def card_vs_cpu_steps(torch, np, cuda_lib, fb, teacher, guide, devices=("cuda", "cpu")):
+    """One diffusion step and one consistency step at batch 2, 128x128, on
+    the card (the teacher and guide through the kernels) and on the CPU
+    (plain versions), same weights, batch and draws: the loss, the JVP
+    tangent F_theta_grad and the updated weights agree within TRAIN_TOL."""
+    from terrain_diffusion_tpu_torch.training import diffusion_core as core
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    batch = {"image": torch.randn((2, 128, 128, 1), generator=g) * 0.5,
+             "cond_img": torch.randn((2, 128, 128, 4), generator=g)}
+    lr = 1e-4
+    dcfg = core.DiffusionLossConfig(sigma_data=0.5, P_mean=-0.6, P_std=1.3)
+    ccfg = core.ConsistencyLossConfig(sigma_data=0.5, P_mean=-0.6, P_std=2.0,
+                                      guidance_scale=1.265, warmup_steps=10000)
+    d = core.draws(batch["image"], torch.Generator().manual_seed(SEED + 7))
+    results = {}
+    for dev in devices:
+        on = lambda t: t.to(dev)  # noqa: E731
+        b = {k: on(v) for k, v in batch.items()}
+        dd = {k: on(v) if isinstance(v, torch.Tensor) else v for k, v in d.items()}
+        t_dev, g_dev = copy.deepcopy(teacher).to(dev).eval(), copy.deepcopy(guide).to(dev).eval()
+        out = {}
+        for kind in ("diffusion", "consistency"):
+            student = copy.deepcopy(teacher).to(dev).train()
+            terms = {}
+            if kind == "diffusion":
+                loss_fn = lambda m, bb, _g: core.diffusion_loss(m, bb, dd, dcfg)  # noqa: E731
+            else:
+                def loss_fn(m, bb, _g):
+                    loss, aux = core.consistency_loss(m, t_dev, bb, dd, ccfg, 0, guide_fn=g_dev,
+                                                      return_terms=True)
+                    terms.update(aux)
+                    return loss, aux
+            opt = core.make_optimizer(grad_clip=5.0)
+            state = opt.init(core.trained_tensors(student))
+            cuda_lib.reset_launch_counts()
+            metrics = core.make_train_step(loss_fn, opt)(student, state, b, None, lr)
+            out[kind] = dict(loss=metrics["loss"].cpu(), grad_norm=metrics["grad_norm"].cpu(),
+                             weights={k: v.detach().cpu() for k, v in
+                                      core.trained_tensors(student).items()},
+                             f_grad=terms["F_theta_grad"].cpu() if terms else None,
+                             launches=(fb.fused_block.launches, fb.conv3x3.launches))
+        results[dev] = out
+    for kind in ("diffusion", "consistency"):
+        got, want = (results[d][kind] for d in devices)
+        errs = {"loss": rel_err(got["loss"], want["loss"]),
+                "grad_norm": rel_err(got["grad_norm"], want["grad_norm"]),
+                "weights": max(rel_err(got["weights"][k], w) for k, w in want["weights"].items())}
+        if got["f_grad"] is not None:
+            errs["F_theta_grad"] = rel_err(got["f_grad"], want["f_grad"])
+        print(f"[train] card vs CPU, one {kind} step b2 128x128: "
+              + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items())
+              + f"; card kernel launches (block, conv) {got['launches']}", flush=True)
+        check(all(v < TRAIN_TOL for v in errs.values()),
+              f"{kind} step card vs CPU: {errs} (bar {TRAIN_TOL})")
+    t_want, g_want = top_level_launches(teacher), top_level_launches(guide)
+    n_want = tuple(t_want[k] + g_want[k] for k in ("fused_block", "conv3x3"))
+    card = results[devices[0]]
+    check(card["diffusion"]["launches"] == (0, 0) and card["consistency"]["launches"] == n_want,
+          f"card step launches {card['diffusion']['launches']} / "
+          f"{card['consistency']['launches']}, expected (0, 0) / {n_want}")
+
+
+def teacher_guide_ms(torch, teacher, guide, n=16):
+    """Eager ms of one teacher and one guide forward at b``n`` 128x128 under
+    no_grad, as a distillation step runs them: with the kernels, and with the
+    plain path (the 128 x 128 cutover raised out of reach), in turns (kernels,
+    plain, plain, kernels; the least of each)."""
+    from terrain_diffusion_tpu_torch.nn import edm_unet, layers
+
+    g = torch.Generator().manual_seed(SEED + 9)
+    x = torch.randn((n, 128, 128, 5), generator=g).cuda()
+    nl = torch.full((n,), 0.8, device="cuda")
+
+    def forwards():
+        with torch.no_grad():
+            teacher(x, nl, None)
+            guide(x, nl, None)
+
+    cutover, turns = layers.FUSED_MIN_PIXELS, {"kernels": [], "plain": []}
+    for mode in ("kernels", "plain", "plain", "kernels"):
+        layers.FUSED_MIN_PIXELS = edm_unet.FUSED_MIN_PIXELS = (
+            cutover if mode == "kernels" else 1 << 62)
+        try:
+            turns[mode].append(time_ms(forwards, iters=3))
+        finally:
+            layers.FUSED_MIN_PIXELS = edm_unet.FUSED_MIN_PIXELS = cutover
+    return min(turns["kernels"]), min(turns["plain"]), turns
+
+
+def training_phase(torch, np, cuda_lib, fb, attn, dev, work_dir):
+    """The training path through ``run_training`` on the shipped configs,
+    datasets in memory: the diffusion decoder (64-3, b32, 128x128, random
+    init, 6 steps), its consistency distillation (b16, the diffusion run's
+    saved model as teacher, a random 32-3 guide, 4 steps: the teacher and
+    guide forwards launch the block and conv kernels, the student none),
+    and the base model (192-3, b48, 64x64, dropout 0.1, 3 steps, no kernel);
+    then one diffusion and one consistency step card vs CPU.  Returns the
+    consistency run's launches and a summary per run."""
+    from terrain_diffusion_tpu_torch.nn import torch_compat
+    from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
+
+    register_memory_datasets()
+    summary = {}
+
+    def dataset(kind, crop):
+        section = {"@dataset": "chip_smoke_" + kind, "crop_size": crop, "seed": SEED}
+        return "train_dataset=" + json.dumps(section)
+
+    save = os.path.join(work_dir, "diffusion_decoder")
+    trainer, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, DECODER_CFG, save, [dataset("decoder", 128)], 6,
+        "diffusion decoder 64-3")
+    teacher_path = os.path.join(save, "latest_checkpoint", "saved_model")
+    fwd = unet_forward_flops(trainer.model, 32, 128, 128)
+    summary["diffusion"] = report_run("diffusion decoder 64-3", lines, launches, peak, 32, 128,
+                                      3 * fwd)
+    check(launches == {"fused_block": 0, "conv3x3": 0, "attention": 0},
+          f"the diffusion run launched kernels: {launches}")
+    del trainer
+
+    guide = EDMUnet2D(EDMUnetConfig.from_dict(model_config(GUIDE_CFG)), device="cpu",
+                      generator=torch.Generator().manual_seed(SEED + 5))
+    lively(torch, guide, SEED + 5)
+    guide_path = os.path.join(work_dir, "guide_32-3")
+    torch_compat.save_model(guide, guide_path)
+    save = os.path.join(work_dir, "consistency_decoder")
+    trainer, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, CONSISTENCY_CFG, save,
+        [dataset("decoder", 128), f"model.main_path={json.dumps(teacher_path)}",
+         f"model.guide_path={json.dumps(guide_path)}"], 4, "consistency decoder 64-3")
+    student_fwd = unet_forward_flops(trainer.model, 16, 128, 128)
+    teacher_fwd = unet_forward_flops(trainer.teacher, 16, 128, 128)
+    guide_fwd = unet_forward_flops(trainer.guide, 16, 128, 128)
+    step_flops = teacher_fwd + guide_fwd + 4 * student_fwd
+    summary["consistency"] = run = report_run("consistency decoder 64-3 (+ guide 32-3)", lines,
+                                              launches, peak, 16, 128, step_flops)
+    per_step = {k: a + b for (k, a), b in zip(top_level_launches(trainer.teacher).items(),
+                                             top_level_launches(trainer.guide).values())}
+    want = {k: v * len(lines) for k, v in per_step.items()}
+    print(f"[train] consistency: launches {launches} = {len(lines)} steps x (teacher + guide "
+          f"{per_step}); teacher + guide forwards {(teacher_fwd + guide_fwd) / 1e12:.2f} of "
+          f"{step_flops / 1e12:.2f} TFLOP/step ({(teacher_fwd + guide_fwd) / step_flops:.1%})",
+          flush=True)
+    check(launches == want, f"consistency run launches {launches}, expected {want}")
+    run["teacher_guide_share"] = (teacher_fwd + guide_fwd) / step_flops
+    k_ms, p_ms, turns = teacher_guide_ms(torch, trainer.teacher, trainer.guide)
+    print(f"[train] consistency: teacher + guide forwards b16 128x128: {k_ms:.1f} ms with the "
+          f"kernels ({k_ms / run['ms']:.1%} of the {run['ms']:.1f} ms step), {p_ms:.1f} ms on "
+          f"the plain path (turns: kernels {', '.join(f'{t:.1f}' for t in turns['kernels'])}; "
+          f"plain {', '.join(f'{t:.1f}' for t in turns['plain'])})", flush=True)
+    run.update(teacher_guide_ms=k_ms, teacher_guide_plain_ms=p_ms)
+    teacher = lively(torch, copy.deepcopy(trainer.teacher).cpu(), SEED + 8)
+    guide_cpu = copy.deepcopy(trainer.guide).cpu()
+    del trainer
+
+    save = os.path.join(work_dir, "diffusion_base")
+    trainer, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, BASE_CFG, save, [dataset("latents", 64)], 3,
+        "diffusion base 192-3")
+    check(trainer.model.enc["512x512_block0"].dropout == 0.1, "the base run has no dropout")
+    fwd = unet_forward_flops(trainer.model, 48, 64, 64)
+    summary["base"] = report_run("diffusion base 192-3 (dropout 0.1)", lines, launches, peak,
+                                 48, 64, 3 * fwd)
+    check(launches == {"fused_block": 0, "conv3x3": 0, "attention": 0},
+          f"the base run launched kernels: {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    card_vs_cpu_steps(torch, np, cuda_lib, fb, teacher, guide_cpu)
+    return want, summary
+
+
 def main():
     try:
         import torch
@@ -1171,6 +1521,9 @@ def main():
             torch, fb, models[2], dev, "bfloat16"))
         launches16 = timed("bf16 minecraft", lambda: minecraft_phase_bf16(
             torch, np, cuda_lib, fb, attn, dev, world_dir, f32_tile))
+        torch.cuda.empty_cache()
+        train_launches, _ = timed("training", lambda: training_phase(
+            torch, np, cuda_lib, fb, attn, dev, world_dir))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
@@ -1184,7 +1537,8 @@ def main():
                            "ms": main_case["ms"], "device_ms": main_case["device_ms"],
                            "plain_ms": main_case["plain_ms"],
                            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-                           "library_ms": main_case["library_ms"], "case": case})
+                           "library_ms": main_case["library_ms"], "case": case,
+                           "training_launches": train_launches[kernel] if not suffix else 0})
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

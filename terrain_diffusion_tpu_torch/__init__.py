@@ -1,7 +1,10 @@
-"""PyTorch + CUDA port of terrain_diffusion_tpu's serving path.
+"""PyTorch + CUDA port of terrain_diffusion_tpu's serving path and of its
+diffusion and consistency training path (``training/``, the counterpart of
+``terrain_diffusion_tpu/training/``).
 
 The JAX package (``terrain_diffusion_tpu``) stays the reference this
-package is held against; this package imports neither it nor JAX.
+package is held against; this package imports neither it nor JAX.  Each
+module names its JAX counterpart by path.
 """
 import torch
 

@@ -8,7 +8,12 @@ and parameter names are the reference state-dict names, e.g.
 ``enc.512x512_block0.conv_res0.weight``.  Activations are NHWC.
 
 The input and output 3x3 convs on maps of at least 128 x 128 pixels run
-through the hand-written conv kernel (``ops/fused_block.py::conv3x3``).
+through the hand-written conv kernel (``ops/fused_block.py::conv3x3``),
+except in a training forward or one autograd records through, which runs
+the plain path throughout (``nn/layers.py``).  ``forward(training=True,
+generator=g)`` mirrors JAX's ``apply(training=True, dropout_key=k)``: one
+dropout seed a plan entry is drawn from ``g``, in plan order, as
+``jax.random.split(dropout_key, n_blocks)`` gives one key each.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 
 from terrain_diffusion_tpu_torch.ops import mp
+from terrain_diffusion_tpu_torch.ops.cuda_lib import autograd_live
 from terrain_diffusion_tpu_torch.ops.fused_block import conv3x3
 from terrain_diffusion_tpu_torch.ops.nhwc import oihw_to_hwio
 from terrain_diffusion_tpu_torch.nn.layers import (FUSED_MIN_PIXELS, MPConv,
@@ -178,24 +184,32 @@ class EDMUnet2D(nn.Module):
         return mp.mp_silu(mp.mp_sum(embeds, weights))
 
     def forward(self, x, noise_labels=None, conditional_inputs=None,
-                return_logvar: bool = False):
-        """x is NHWC (N, H, W, in_channels)."""
+                return_logvar: bool = False, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x is NHWC (N, H, W, in_channels).  ``training`` with a CPU
+        ``generator`` applies the blocks' dropout."""
         cfg = self.config
         emb = self.compute_embeddings(noise_labels, conditional_inputs)
         if emb is not None:
             emb = emb.to(x.dtype)
         x = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+        n_plan = len(self.enc_plan) + len(self.dec_plan)
+        seeds = ([None] * n_plan if not (training and generator is not None) else
+                 torch.randint(0, 2 ** 62, (n_plan,), generator=generator).tolist())
+        seeds = iter(seeds)
         skips = []
         for name, kind, _cin, _cout, _opts in self.enc_plan:
+            seed = next(seeds)
             if kind == "conv":
-                x = self._conv3x3(self.enc[name], x)
+                x = self._conv3x3(self.enc[name], x, training=training)
             else:
-                x = self.enc[name](x, emb)
+                x = self.enc[name](x, emb, training=training, dropout_seed=seed)
             skips.append(x)
         for name, _kind, _cin, _cout, _opts in self.dec_plan:
             skip = skips.pop() if "block" in name else None
-            x = self.dec[name](x, emb, skip, concat_w=cfg.concat_balance)
-        x = self._conv3x3(self.out_conv, x, getattr(self, "out_gain", None))
+            x = self.dec[name](x, emb, skip, concat_w=cfg.concat_balance, training=training,
+                               dropout_seed=next(seeds))
+        x = self._conv3x3(self.out_conv, x, getattr(self, "out_gain", None), training)
         if return_logvar:
             lv_in = torch.log(torch.tan(noise_labels) / 8.0)
             logvar = self.logvar_linear(self.logvar_fourier(lv_in))
@@ -203,10 +217,12 @@ class EDMUnet2D(nn.Module):
         return x
 
     @staticmethod
-    def _conv3x3(conv: MPConv, x, gain=None):
-        """The in/out 3x3 conv: the hand-written kernel on large maps."""
+    def _conv3x3(conv: MPConv, x, gain=None, training: bool = False):
+        """The in/out 3x3 conv: the hand-written kernel on large maps, but in
+        a training forward or one autograd records through."""
         gain = 1.0 if gain is None else gain
-        if x.shape[1] * x.shape[2] >= FUSED_MIN_PIXELS:
+        if x.shape[1] * x.shape[2] >= FUSED_MIN_PIXELS and not training \
+                and not autograd_live(x, conv.weight, gain):
             w = oihw_to_hwio(conv.prepared_weight(gain)).contiguous()
             return conv3x3(x.contiguous(), w)
         return conv(x, gain=gain)

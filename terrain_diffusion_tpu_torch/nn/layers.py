@@ -17,6 +17,19 @@ for its Pallas kernel, set through a model's ``block_kwargs``) runs its
 attention core through the hand-written attention kernel
 (``ops/attention.py``) wherever ``attention_eligible`` holds; any other value
 runs the plain einsum.  The qkv and output 1x1 projections stay ``MPConv``.
+The kernels define no backward (JAX: ``block_eligible`` is False for
+``training``), so a training forward, and any forward through which
+autograd records (``cuda_lib.autograd_live``: grad mode on and a parameter
+or input requiring grad, or a ``torch.func.jvp`` in progress), runs the
+plain path in every block, the in conv and the head.
+
+Training (``unet_block_apply(training=, dropout_key=)`` in JAX): a block
+built with ``dropout`` p > 0 drops the emb-modulated silu's output before
+``conv_res1`` in a training forward, keeping each value with probability
+1 - p and scaling kept values by 1 / (1 - p); the mask is drawn from a
+generator seeded by the block's ``dropout_seed``.  ``normalize_weights_``
+is the forced re-normalization after each optimizer update
+(``norm_weights_tree``).
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from terrain_diffusion_tpu_torch.ops import mp
 from terrain_diffusion_tpu_torch.ops.attention import (attention_eligible,
                                                        fused_pixelnorm_attention,
                                                        pixelnorm_attention_reference)
+from terrain_diffusion_tpu_torch.ops.cuda_lib import autograd_live
 from terrain_diffusion_tpu_torch.ops.fused_block import fused_block
 from terrain_diffusion_tpu_torch.ops.nhwc import conv2d_nhwc, oihw_to_hwio
 
@@ -110,8 +124,19 @@ def resample(x: torch.Tensor, mode: str = "keep", factor: int = 2) -> torch.Tens
     raise ValueError(f"unknown resample mode {mode}")
 
 
+def normalize_weights_(model: nn.Module) -> None:
+    """Forced weight normalization after an optimizer update: every MP
+    weight (each parameter of ndim >= 2: the conv, linear and embedding
+    weights, JAX's ``path[-1] == "w"`` leaves) is set to ``mp.normalize(w)``;
+    the scalar gains stay."""
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() >= 2:
+                p.copy_(mp.normalize(p))
+
+
 class UNetBlock(nn.Module):
-    """One magnitude-preserving U-Net block (inference)."""
+    """One magnitude-preserving U-Net block."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  device, generator: torch.Generator, mode: str = "enc",
@@ -120,7 +145,8 @@ class UNetBlock(nn.Module):
                  attn_balance: float = 0.3, clip_act=256.0,
                  conv_type: str = "default", resample_type: str = "pooling",
                  expansion_factor: int = 1, no_padding: bool = False,
-                 activation: str = "silu", attention_impl: str = "xla", **_unused):
+                 activation: str = "silu", attention_impl: str = "xla",
+                 dropout: float = 0.0, **_unused):
         super().__init__()
         if conv_type != "default" or expansion_factor != 1 or no_padding \
                 or activation != "silu":
@@ -135,6 +161,7 @@ class UNetBlock(nn.Module):
         self.attn_balance = float(attn_balance)
         self.clip_act = clip_act
         self.attention_impl = attention_impl
+        self.dropout = float(dropout)
         # attention disables when out_channels < channels_per_head (no heads)
         self.num_heads = out_channels // channels_per_head if attention else 0
         kw = dict(device=device, generator=generator)
@@ -154,19 +181,20 @@ class UNetBlock(nn.Module):
         c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
         return c / torch.sqrt(torch.mean(c * c, dim=-1, keepdim=True) + 1e-8)
 
-    def _attention(self, x):
+    def _attention(self, x, kernels: bool = True):
         """Pixel-norm attention; qkv channels are laid out (head, channel,
-        qkv) with qkv fastest."""
+        qkv) with qkv fastest.  ``kernels=False`` keeps the plain einsum."""
         y = self.attn_qkv(x)
-        if self.attention_impl == "pallas" and attention_eligible(y, self.num_heads):
+        if kernels and self.attention_impl == "pallas" and not autograd_live(y) \
+                and attention_eligible(y, self.num_heads):
             out = fused_pixelnorm_attention(y.contiguous(), self.num_heads)
         else:  # JAX's XLA formulation: normed q, k, v in the activations' type
             out = pixelnorm_attention_reference(y, self.num_heads, round_normed=True)
         return self.attn_proj(out.to(x.dtype))
 
-    def _tail(self, x):
+    def _tail(self, x, kernels: bool = True):
         if self.num_heads > 0:
-            x = mp.mp_sum([x, self._attention(x)], w=self.attn_balance)
+            x = mp.mp_sum([x, self._attention(x, kernels)], w=self.attn_balance)
             if self.clip_act is not None:
                 x = torch.clamp(x, -self.clip_act, self.clip_act)
         return x
@@ -189,10 +217,14 @@ class UNetBlock(nn.Module):
             concat_scales=scales, pre_upsample=pre_upsample)
         return self._tail(out)
 
-    def forward(self, x, emb, skip=None, concat_w: float = 0.3):
+    def forward(self, x, emb, skip=None, concat_w: float = 0.3, training: bool = False,
+                dropout_seed=None):
+        """``training`` turns on dropout (with ``dropout_seed`` given) and,
+        as any forward autograd records through, keeps the plain path."""
         h, w = x.shape[1], x.shape[2]
         f = {"up": 2.0, "down": 0.5}.get(self.resample_mode, 1.0)
-        fused = (h * f) * (w * f) >= FUSED_MIN_PIXELS
+        kernels = not training and not autograd_live(x, emb, skip, *self.parameters())
+        fused = kernels and (h * f) * (w * f) >= FUSED_MIN_PIXELS
         # the parameter-free nearest-up runs inside the fused kernel
         defer_up = fused and self.resample_mode == "up" and skip is None
         if not defer_up:
@@ -216,12 +248,16 @@ class UNetBlock(nn.Module):
             y = mp.mp_silu(y * self._emb_scale(emb)[:, None, None, :].to(y.dtype))
         else:
             y = mp.mp_silu(y)
+        if training and self.dropout > 0 and dropout_seed is not None:
+            mask_gen = torch.Generator(device=y.device).manual_seed(int(dropout_seed))
+            keep = torch.rand(y.shape, generator=mask_gen, device=y.device) < 1.0 - self.dropout
+            y = torch.where(keep, y / (1.0 - self.dropout), 0.0)
         y = self.conv_res1(y)
         if self.mode == "dec" and self.conv_skip is not None:
             x = self.conv_skip(x)
         x = mp.mp_sum([x, y], w=self.res_balance)
         if self.num_heads > 0:
-            x = mp.mp_sum([x, self._attention(x)], w=self.attn_balance)
+            x = mp.mp_sum([x, self._attention(x, kernels)], w=self.attn_balance)
         if self.clip_act is not None:
             x = torch.clamp(x, -self.clip_act, self.clip_act)
         return x

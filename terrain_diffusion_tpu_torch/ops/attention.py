@@ -7,7 +7,9 @@ Counterpart of ``terrain_diffusion_tpu.ops.pallas_attention``:
   ``csrc/attention.cu`` (the counterpart of the Pallas kernel
   ``fused_pixelnorm_attention``) for a CUDA tensor, and computes
   ``pixelnorm_attention_reference`` for a CPU tensor.  It counts its
-  launches in ``fused_pixelnorm_attention.launches``.
+  launches in ``fused_pixelnorm_attention.launches``.  On any device it
+  raises RuntimeError where autograd would record through qkv: the kernel
+  defines no backward (``cuda_lib.refuse_autograd``).
 - ``attention_path(ch)`` says which of the source's two kernels a head of
   ``ch`` channels runs: the 3xTF32 tensor-core kernel for 16, 32 and 64
   channels, the CUDA-core kernel for any other width.  The C entry point
@@ -40,7 +42,7 @@ import torch
 
 from terrain_diffusion_tpu_torch.ops.cuda_lib import (DTYPE_CODES, check_input, check_rc,
                                                       count_launch, counted, kernel_dtype,
-                                                      load, stream)
+                                                      load, refuse_autograd, stream)
 
 TENSOR_CORE_CHANNELS = (16, 32, 64)  # csrc/attention.cu's pixelnorm_attention_tc<CH>
 
@@ -100,6 +102,7 @@ def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
                               eps: float = 1e-4) -> torch.Tensor:
     """(N, H, W, 3C) float32, bfloat16 or float16 qkv -> (N, H, W, C) attention
     output in qkv's type."""
+    refuse_autograd("fused_pixelnorm_attention", qkv)
     if qkv.device.type == "cpu":
         return pixelnorm_attention_reference(qkv, num_heads, eps)
     dt = kernel_dtype("qkv", qkv)

@@ -11,6 +11,11 @@ Each kernel wrapper is registered with ``counted``: it gets a plain integer
 ``launches`` attribute and a ``launches_by_dtype`` dict (float32 and the
 16-bit forms apart) that ``count_launch`` raises by one where the wrapper
 launches its kernel, and ``reset_launch_counts`` zeroes all of them.
+
+The kernels define no backward, as the Pallas kernels define no VJP: every
+wrapper calls ``refuse_autograd`` first, on any device, so that a tensor
+without ``grad_fn`` is never returned where autograd records; the models
+route such forwards to the plain versions by ``autograd_live``.
 """
 from __future__ import annotations
 
@@ -171,6 +176,26 @@ def kernel_dtype(name: str, t: torch.Tensor) -> torch.dtype:
         raise TypeError(f"{name}: the kernels take {', '.join(map(str, DTYPE_CODES))}, "
                         f"got {t.dtype}")
     return t.dtype
+
+
+def autograd_live(*tensors) -> bool:
+    """True where autograd would record through any of ``tensors`` (None
+    skipped): grad mode is on and one requires grad, or one is wrapped by a
+    ``torch.func`` transform (``jvp`` carries tangents outside ``grad_fn``)."""
+    ts = [t for t in tensors if isinstance(t, torch.Tensor)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return True
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in ts)
+
+
+def refuse_autograd(name: str, *tensors):
+    """Raise RuntimeError where autograd would record through ``tensors``:
+    the kernel (and, for one rule on every device, its plain version behind
+    the wrapper) defines no backward."""
+    if autograd_live(*tensors):
+        raise RuntimeError(f"{name} defines no backward: call it under torch.no_grad() on "
+                           "tensors that need no gradient (a training forward runs the "
+                           "plain path)")
 
 
 def ptr(t):

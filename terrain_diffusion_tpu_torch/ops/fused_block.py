@@ -32,7 +32,9 @@ and compute the same math, rounding at the same points, with ``F.conv2d``
 and tensor ops in float32 (float64 for a float64 input, an exact oracle).
 A wrapper uses its plain version only for a tensor that lies on the CPU;
 for a CUDA tensor it launches its kernel or raises, and a 16-bit tensor
-never goes to the float32 kernel.  Each wrapper counts its launches in a
+never goes to the float32 kernel.  On any device a wrapper raises
+RuntimeError where autograd would record through an input (the kernels
+define no backward, ``cuda_lib.refuse_autograd``).  Each wrapper counts its launches in a
 plain integer attribute (``fused_block.launches``, ``conv3x3.launches``).
 
 The kernels are built and loaded by ``ops/cuda_lib.py``.
@@ -45,7 +47,7 @@ import torch
 
 from terrain_diffusion_tpu_torch.ops.cuda_lib import (DTYPE_CODES, check_input, check_rc,
                                                       count_launch, counted, kernel_dtype,
-                                                      load, ptr, stream)
+                                                      load, ptr, refuse_autograd, stream)
 from terrain_diffusion_tpu_torch.ops.nhwc import conv2d_nhwc, hwio_to_oihw
 
 INV_SILU_GAIN = 1.0 / 0.596  # mp_silu divisor, folded into the conv weights
@@ -140,6 +142,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """SAME-padded 3x3 conv: x (N, H, W, Cin) float32, bfloat16 or float16, w (3, 3,
     Cin, Cout) prepared HWIO weight (normalized, fan-in scaled, gain folded;
     float32, or x's type); the output is in x's type."""
+    refuse_autograd("conv3x3", x, w)
     if x.device.type == "cpu":
         return conv3x3_reference(x, w)
     dt = kernel_dtype("x", x)
@@ -233,6 +236,7 @@ def fused_block(x, w0, w1, c, wskip=None, x2=None, *, mode="enc",
     is folded into w0/w1 here, in float32 before any rounding, so callers
     pass plain normalized weights.
     """
+    refuse_autograd("fused_block", x, w0, w1, c, wskip, x2)
     if x.device.type == "cpu":
         return fused_block_reference(
             x, w0, w1, c, wskip, x2, mode=mode, pixel_norm=pixel_norm,

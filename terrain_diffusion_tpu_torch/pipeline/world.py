@@ -601,7 +601,8 @@ class WorldPipeline:
         reqs = [(self.residual, res_list), (self.latents, lat_list)]
         if coarse_list:
             reqs.append((self.coarse, coarse_list))
-        ensure_regions_multi(reqs)
+        with torch.no_grad():  # inference: the stage forwards take the kernels
+            ensure_regions_multi(reqs)
 
     def get(self, i1, j1, i2, j2, with_climate: bool = True,
             pack_wire: bool = False) -> dict:

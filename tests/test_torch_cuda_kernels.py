@@ -11,6 +11,11 @@ float64 on the CPU.  Shapes are small and deliberately ragged (maps that are
 not a multiple of the 8 x 16 pixel tile, channel counts off the tile
 widths: Cin 5, 6, 33, Cout 1, 3, 8, 40).
 
+The training path (``test_wrappers_refuse_autograd_on_the_card``,
+``test_training_forward_on_the_card_takes_the_plain_path``): the wrappers
+raise where autograd would record, and a training forward launches no
+kernel and gives the CPU's gradients (bar 1e-4).
+
 The 16-bit conv core on wgmma (``test_wgmma_core*``) is driven through the
 block's C entry points with each epilogue, at every block width pair the
 decoder sends, against the same products in float32 on the card.
@@ -409,3 +414,56 @@ def test_kernels_route_by_dtype(dev):
         attention.fused_pixelnorm_attention(_rand(g, (1, 8, 8, 1200), dev).bfloat16(), 1)
     for fn in (fb.conv3x3, fb.fused_block, attention.fused_pixelnorm_attention):
         assert fn.launches == 3
+
+
+def test_wrappers_refuse_autograd_on_the_card(dev):
+    """A CUDA input autograd records through raises instead of coming back
+    without grad_fn; under no_grad the same call launches."""
+    g = torch.Generator().manual_seed(3)
+    x, w = _rand(g, (1, 16, 16, 8), dev), _rand(g, (3, 3, 8, 8), dev, 0.1)
+    qkv = _rand(g, (1, 8, 8, 48), dev)
+    for call, inp in ((lambda a: fb.conv3x3(a, w), x),
+                      (lambda a: fb.fused_block(a, w, w, None, mode="dec"), x),
+                      (lambda a: attention.fused_pixelnorm_attention(a, 2), qkv)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(inp.clone().requires_grad_())
+        with torch.no_grad():
+            assert torch.isfinite(call(inp.clone().requires_grad_())).all()
+
+
+def test_training_forward_on_the_card_takes_the_plain_path(dev):
+    """A 128x128 U-Net: a training forward launches no kernel and its loss
+    and gradients match the CPU's; the same model under no_grad in eval
+    launches every top-level block and both convs."""
+    from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
+
+    cfg = EDMUnetConfig(image_size=128, in_channels=3, out_channels=2, model_channels=16,
+                        model_channel_mults=(1, 2), layers_per_block=1, fourier_scale="pos",
+                        noise_emb_dims=16, logvar_channels=8)
+    cpu = EDMUnet2D(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.out_gain.fill_(1.0)
+        for name, p in cpu.named_parameters():
+            if name.endswith("emb_gain"):
+                p.fill_(0.4)
+    card = EDMUnet2D(cfg, device=dev, generator=torch.Generator())
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x, nl = torch.randn((2, 128, 128, 3), generator=g), torch.tensor([0.3, 1.2])
+    grads = []
+    for m, d in ((card, dev), (cpu, "cpu")):
+        cuda_lib.reset_launch_counts()
+        y, lv = m(x.to(d), nl.to(d), return_logvar=True, training=True)
+        (y.square().mean() + lv.mean()).backward()
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+        if m is card:
+            assert fb.fused_block.launches == fb.conv3x3.launches == 0
+    for k, want in grads[1].items():
+        assert _rel(grads[0][k], want) < TOL, k
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        card.eval()(x.to(dev), nl.to(dev))
+    top = sum(1 for name, kind, *_ in card.enc_plan + card.dec_plan
+              if kind == "block" and name.startswith("128x128_"))
+    assert (fb.fused_block.launches, fb.conv3x3.launches) == (top, 2)
