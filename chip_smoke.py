@@ -14,7 +14,11 @@ Phases, each of which exits non-zero on failure:
    version and the library yardstick (CUDA events around 5 calls, the
    wrappers' host work included, as the eager main path pays it) and,
    beside them, the kernel's device time (``device_ms``: 5 calls in a CUDA
-   graph, replayed and timed with CUDA events, host work left out): the fused block
+   graph, replayed and timed with CUDA events, host work left out), the
+   library yardstick's device time taken the same way
+   (``library_device_ms``), and the wrapper's host work (``host``: the wall
+   time of 5 calls that do not wait for the device; for a 16-bit conv or
+   block, of it the per-call relayout of its weights, ``_k_major``): the fused block
    and the 3x3 conv at the decoder's shapes (batch 1, 2 and 16), the
    attention at the base model's midblock shape (batch 1, 16, 64), the JAX
    package's test shapes and the largest eligible map (HW = 2048).  Each
@@ -30,7 +34,9 @@ Phases, each of which exits non-zero on failure:
    change; TF32 off) and the launches per forward.  Each attention row
    names the kernel path its width takes, as the built library dispatches
    it (``library_attention_path``, checked equal to ``attention_path``);
-   one row, a head of 400 channels, runs the CUDA-core kernel.  Then the
+   the rows of a head of 400 channels (float32, bf16, fp16) run the CUDA-core
+   kernel.  Each 16-bit conv row names the core the chooser gives it
+   (``[head]``, ``[in_conv]``).  Then the
    fused block, at production widths on small maps, and the attention at
    the midblock b64 and HW = 2048, against their plain versions run in
    float64 on the CPU, beside the float32 plain version's own error.  The
@@ -63,8 +69,10 @@ Phases, each of which exits non-zero on failure:
    time, which must agree with the concurrent answers (elevation within
    1 m, biome ids equal on >= 99% of pixels).
 7. bf16 (the ``--dtype bf16`` path, with the kernels' 16-bit forms): the
-   kernel phase's bf16 rows (the 7 fused-block and 4 conv main-path cases and
-   the midblock attention at b1 / b16 / b64; and one fp16 row per kernel),
+   kernel phase's bf16 rows (the 7 fused-block and 4 conv main-path cases,
+   the midblock attention at b1 / b16 / b64 and the 400-channel head; and
+   the fp16 rows: the block at b2, the in conv and the head at b2 / b16, the
+   midblock b64 and the 400-channel head),
    each against its plain version on the same 16-bit inputs (bar 1e-2 in
    bf16, 2.5e-3 in fp16) and against the plain version in
    float64 on the card (no rounding: the kernel's error at most 1.25 x the
@@ -78,7 +86,10 @@ Phases, each of which exits non-zero on failure:
    ``minecraft_api.main([..., "--dtype", "bf16", "--threaded"])`` on the world
    of phase 6: a cold 256x256 tile, the same again (byte-identical), four
    adjacent cold tiles at once, with the cold tile's relative RMSE against
-   phase 6's float32 tile.
+   phase 6's float32 tile.  Before it, the fp16 forms on the main path: one
+   decoder forward at 512x512 b2 and one base forward (attention kernel) in
+   fp16, which launch 26 blocks, 2 convs and 1 attention in fp16, and the
+   fp16 decoder forward timed at b2 / b16.
 8. training (``terrain_diffusion_tpu_torch.training``): ``run_training`` on
    the shipped configs, float32 with TF32 off, with in-memory datasets made
    from the seed in the item layout of the HDF5 datasets (no h5py on the
@@ -104,8 +115,9 @@ forwards, conv launches = 2 x decoder forwards, every one in the phase's
 type.  The training phase zeroes them before each run.
 
 The last lines are a JSON kernel report (a row per kernel and type:
-launches from the Minecraft phase in that type, ``training_launches`` from
-the consistency run), the card's name and power limit, and
+launches from the Minecraft phase in float32 and bf16 and from the fp16
+forwards in fp16, ``training_launches`` from the consistency run), the
+card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 import configparser
@@ -210,6 +222,21 @@ def graph_ms(fn, iters: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(stream)
     ms = time_ms(graph.replay, iters=3) / iters
     del graph
+    return ms
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Host time of one call of fn: the wall time of iters calls, none of
+    which waits for the device (the queue was drained before), per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
     return ms
 
 
@@ -336,15 +363,20 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
                     exact=lambda: fb.fused_block_reference(*exact(args), **kw),
                     library=lambda: [F.conv2d(i, wt, padding=1) for i, wt in zip(lib_in, lib_w)],
                     work=block_work(*args, **kw),
-                    unit="3xtf32" if dtype == torch.float32 else "bf16")
+                    unit="3xtf32" if dtype == torch.float32 else "bf16",
+                    relayout=None if dtype == torch.float32 else lambda: [
+                        fb._k_major(wt, dtype, fb.INV_SILU_GAIN) for wt in (w0, w1)])
 
     def conv_case(n, cin, cout, dtype=torch.float32, size=512):
         x, wt = rand(n, size, size, cin).to(dtype), rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
         xv, w_oihw = x.permute(0, 3, 1, 2), wt.to(dtype).permute(3, 2, 0, 1).contiguous()
+        label = "" if dtype == torch.float32 else f"[{fb.conv16_path(3, cin, cout)}]"
         return dict(run=lambda: fb.conv3x3(x, wt), ref=lambda: fb.conv3x3_reference(x, wt),
                     exact=lambda: fb.conv3x3_reference(*exact((x, wt))),
                     library=lambda: F.conv2d(xv, w_oihw, padding=1),
-                    work=conv_work(x, wt), unit=conv_unit(wt, str(dtype).split(".")[-1]))
+                    work=conv_work(x, wt), unit=conv_unit(wt, str(dtype).split(".")[-1]),
+                    label=label,
+                    relayout=None if dtype == torch.float32 else lambda: fb._k_major(wt, dtype))
 
     def attn_case(shape, heads, dtype=torch.float32):
         qkv = rand(*shape, scale=3.0).to(dtype)
@@ -422,12 +454,17 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
               for io, cin, cout in (("in", 6, 64), ("out", 64, 1)) for n in (2, 16)]
     cases += [("attention" + BF16, f"midblock 8x8 12x64 b{n}",
                attn_case((n, 8, 8, 2304), 12, dtype=bf16)) for n in (1, 16, 64)]
-    fp16 = torch.float16  # the fp16 forms: one main-path row per kernel
+    fp16 = torch.float16  # the fp16 forms: the main path's rows of each kernel
     cases += [("fused_block" + FP16, "enc 512x512 64->64 b2",
-               block_case(2, 512, 64, 64, "enc", dtype=fp16)),
-              ("conv3x3" + FP16, "in conv 512x512 6->64 b2", conv_case(2, 6, 64, dtype=fp16)),
-              ("attention" + FP16, "midblock 8x8 12x64 b64",
+               block_case(2, 512, 64, 64, "enc", dtype=fp16))]
+    cases += [("conv3x3" + FP16, f"{io} conv 512x512 {cin}->{cout} b{n}",
+               conv_case(n, cin, cout, dtype=fp16))
+              for io, cin, cout in (("in", 6, 64), ("out", 64, 1)) for n in (2, 16)]
+    cases += [("attention" + FP16, "midblock 8x8 12x64 b64",
                attn_case((64, 8, 8, 2304), 12, dtype=fp16))]
+    # a 16-bit qkv off the tensor-core widths: the CUDA-core kernel's 16-bit form
+    cases += [("attention" + sfx, "wide head 8x8 1x400 b1", attn_case((1, 8, 8, 1200), 1, dtype=dt))
+              for sfx, dt in ((BF16, bf16), (FP16, fp16))]
     rows = []
     for kernel, name, case in cases:
         suffix = kernel[-len(BF16):] if kernel[-len(BF16):] in (BF16, FP16) else ""
@@ -444,8 +481,11 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
             oracle = f" float64: kernel {err64:.3e} plain {err64_plain:.3e}"
             del ex
         ms, plain_ms = time_ms(case["run"]), time_ms(case["ref"])
-        lib_ms = time_ms(case["library"]) if case["library"] else None
+        lib_ms, lib_dev_ms = time_ms(case["library"]), graph_ms(case["library"])
         device_ms = graph_ms(case["run"])
+        # the wrapper's host work, and of it the 16-bit weights' relayout
+        host = host_ms(case["run"])
+        relayout = host_ms(case["relayout"]) if case.get("relayout") else None
         flops, n_bytes = case["work"]
         b_ms, b_by = bound_ms(flops, n_bytes, case["unit"])
         f32_ms = flops / F32_FLOPS * 1e3
@@ -453,7 +493,10 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
         base_kernel = kernel[:len(kernel) - len(suffix)]
         print(f"[kernel] {kernel:11s} {label:34s} rel_err={rel:.3e} max_abs_err={err_abs:.3e}"
               f"{oracle} kernel={ms:.4f} ms (device {device_ms:.4f} ms) plain={plain_ms:.4f} ms "
-              f"library={'-' if lib_ms is None else f'{lib_ms:.4f} ms'} | "
+              f"library={lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms; ms / library "
+              f"{ms / lib_ms:.2f}x, device {device_ms / lib_dev_ms:.2f}x) host={host:.4f} ms "
+              f"({host / ms:.0%} of eager"
+              f"{'' if relayout is None else f'; weight relayout {relayout:.4f} ms'}) | "
               f"{flops / 1e9:.3f} GFLOP {n_bytes / 1e6:.1f} MB bound={b_ms:.4f} ms ({b_by}, "
               f"{UNITS[case['unit']][2]}) share={b_ms / ms:.1%} (device {b_ms / device_ms:.1%}) "
               f"f32-cuda-core={f32_ms:.4f} ms ({f32_ms / ms:.1%}) "
@@ -468,6 +511,7 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
                   f"the plain version's {err64_plain:.3e}")
         rows.append(dict(kernel=kernel, case=name, max_abs_err=err_abs, rel_err=rel,
                          ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library_device_ms=lib_dev_ms, host_ms=host, relayout_ms=relayout,
                          bound_ms=b_ms, bound_by=b_by))
         del got, want
     print("[kernel] attention library = F.scaled_dot_product_attention(q, k, v) on pre-normed "
@@ -655,12 +699,42 @@ def decoder_forward_phase(torch, fb, decoder, dev, dtype="float32"):
         flops = sum(f for f, _, _ in calls)
         with torch.no_grad():
             ms = time_ms(lambda: decoder(x, nl, []), iters=3)
-        unit = "3xTF32" if dtype == "float32" else "bf16"
+        unit = "3xTF32" if dtype == "float32" else "16-bit"
         print(f"[decoder] forward 512x512 b{n}{'' if dtype == 'float32' else ' ' + dtype}: "
               f"{ms:.2f} ms; its 26 + 2 kernel launches: {flops / 1e9:.1f} GFLOP, summed bound "
               f"{bound:.2f} ms ({unit} tensor cores / bytes), f32 CUDA-core figure "
               f"{flops / F32_FLOPS * 1e3:.2f} ms", flush=True)
         del x
+
+
+def fp16_forward_phase(torch, fb, attn, models, dev) -> dict:
+    """The fp16 forms on the main path: one decoder forward at 512x512 b2
+    and one base forward (attention kernel) at 64x64 in fp16, with their
+    fp16 launches (26 blocks + 2 convs, 1 attention), then the decoder
+    forward timed at b2 and b16 as in float32 and bf16."""
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
+
+    fp16 = torch.float16
+    g = torch.Generator().manual_seed(SEED + 5)
+    decoder, base = models[2], models[1]
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        y = decoder(torch.randn((2, 512, 512, 5), generator=g).to(dev, fp16),
+                    torch.full((2,), 1.2, device=dev, dtype=fp16), [])
+        z = base(torch.randn((1, 64, 64, 5), generator=g).to(dev, fp16),
+                 torch.full((1,), 0.9, device=dev, dtype=fp16),
+                 [torch.randn((1, 58), generator=g).to(dev, fp16)])
+    launches = {"fused_block": fb.fused_block.launches_by_dtype.get(fp16, 0),
+                "conv3x3": fb.conv3x3.launches_by_dtype.get(fp16, 0),
+                "attention": attn.fused_pixelnorm_attention.launches_by_dtype.get(fp16, 0)}
+    print(f"[fp16] decoder 512x512 b2 + base 64x64 forwards: fp16 launches {launches}",
+          flush=True)
+    check(all(bool(torch.isfinite(t.float()).all()) and t.dtype == fp16 for t in (y, z)),
+          "fp16 forwards: non-finite or not fp16")
+    check(launches == {"fused_block": 26, "conv3x3": 2, "attention": 1},
+          f"fp16 forwards launched {launches}, not 26 + 2 + 1")
+    decoder_forward_phase(torch, fb, decoder, dev, "float16")
+    return launches
 
 
 def threefry_phase(torch, dev):
@@ -1519,6 +1593,8 @@ def main():
         timed("bf16 model", lambda: model_phase_bf16(torch, np, fb, attn, models, dev))
         timed("bf16 decoder forward", lambda: decoder_forward_phase(
             torch, fb, models[2], dev, "bfloat16"))
+        launches_fp16 = timed("fp16 forward", lambda: fp16_forward_phase(
+            torch, fb, attn, models, dev))
         launches16 = timed("bf16 minecraft", lambda: minecraft_phase_bf16(
             torch, np, cuda_lib, fb, attn, dev, world_dir, f32_tile))
         torch.cuda.empty_cache()
@@ -1527,7 +1603,7 @@ def main():
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
-    for suffix, counts in (("", launches), (BF16, launches16)):
+    for suffix, counts in (("", launches), (BF16, launches16), (FP16, launches_fp16)):
         for kernel, (source, replaces, case) in KERNELS.items():
             mine = [r for r in rows if r["kernel"] == kernel + suffix]
             main_case = next(r for r in mine if r["case"] == case)
@@ -1537,7 +1613,8 @@ def main():
                            "ms": main_case["ms"], "device_ms": main_case["device_ms"],
                            "plain_ms": main_case["plain_ms"],
                            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-                           "library_ms": main_case["library_ms"], "case": case,
+                           "library_ms": main_case["library_ms"],
+                           "library_device_ms": main_case["library_device_ms"], "case": case,
                            "training_launches": train_launches[kernel] if not suffix else 0})
     print(json.dumps({"kernels": report}))
     print(card)

@@ -67,7 +67,7 @@
 //   a lane and runs one block of 8 warps per SM.
 //
 // CUDA-core path, every other ch (wide heads up to 1812
-// channels): pixelnorm_attention_kernel<T>.  One block of 256 threads owns
+// channels): pixelnorm_attention_kernel<T, E>.  One block of 256 threads owns
 // (batch, head, T queries); it stages its queries pixel-normed in shared
 // memory, then per chunk of T keys stages k and v (one pass each over the
 // interleaved qkv), scores them with float32 FMAs, folds them into a running
@@ -86,8 +86,11 @@
 // for float32, and rounds the output once.  The loads are synchronous
 // (cp.async copies bytes and cannot widen).  At the midblock's shapes it
 // stays bound by its bytes, now 2 a value (25 MB at batch 64: 7.5 us at
-// 3.35 TB/s; the products' three TF32 passes, 4.9 us).  Only the
-// tensor-core widths take 16 bits; the CUDA-core kernel is float32 only.
+// 3.35 TB/s; the products' three TF32 passes, 4.9 us).  The CUDA-core
+// kernel takes a 16-bit qkv the same way: each value is widened to float32
+// as it is staged, the norms, softmax and products stay float32, and the
+// output is rounded once to the type of qkv (as _attn_kernel's
+// out.astype(out_ref.dtype) does), so a 16-bit qkv runs at every width.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,9 +98,6 @@
 #include "conv3x3.cuh"
 
 namespace tdt {
-
-// Largest shared memory a block may take on sm_90 (227 KB).
-constexpr size_t kMaxSmem = 232448;
 
 constexpr int ATTN_THREADS = 256;
 constexpr int ATTN_WARPS = ATTN_THREADS / 32;
@@ -119,15 +119,17 @@ __host__ __device__ inline size_t attn_smem_floats(int T, int ch) {
 }
 
 // Stage rows [p0, p0 + rows) of slot s of this head into dst (T x ld),
-// zero-filling rows past the tile, then pixel-norm each row.
-template <int T>
-__device__ void stage_normed(const float* __restrict__ head_base, size_t pix_stride,
+// widened to float32 (exact), zero-filling rows past the tile, then
+// pixel-norm each row.
+template <int T, class E>
+__device__ void stage_normed(const E* __restrict__ head_base, size_t pix_stride,
                              int p0, int rows, int ch, int slot, float eps,
                              float norm_scale, float* dst) {
   const int ld = ch + 1;
   for (int i = threadIdx.x; i < T * ch; i += ATTN_THREADS) {
     const int p = i / ch, c = i - p * ch;
-    dst[p * ld + c] = p < rows ? head_base[(size_t)(p0 + p) * pix_stride + c * 3 + slot] : 0.f;
+    dst[p * ld + c] =
+        p < rows ? load_f32(head_base + (size_t)(p0 + p) * pix_stride + c * 3 + slot) : 0.f;
   }
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -140,9 +142,9 @@ __device__ void stage_normed(const float* __restrict__ head_base, size_t pix_str
   }
 }
 
-template <int T>
+template <int T, class E>
 __global__ void __launch_bounds__(ATTN_THREADS)
-pixelnorm_attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+pixelnorm_attention_kernel(const E* __restrict__ qkv, E* __restrict__ out,
                            int hw, int heads, int ch, float eps) {
   extern __shared__ float smem[];
   const int ld = ch + 1;
@@ -160,7 +162,7 @@ pixelnorm_attention_kernel(const float* __restrict__ qkv, float* __restrict__ ou
   const int nq = min(T, hw - q0);
   const int C = heads * ch;
   const size_t pix_stride = 3 * (size_t)C;
-  const float* head_base = qkv + (size_t)n * hw * pix_stride + (size_t)head * ch * 3;
+  const E* head_base = qkv + (size_t)n * hw * pix_stride + (size_t)head * ch * 3;
   const float norm_scale = rsqrtf((float)ch);
   const float logit_scale = 1.0f / sqrtf((float)ch);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -213,24 +215,41 @@ pixelnorm_attention_kernel(const float* __restrict__ qkv, float* __restrict__ ou
     }
   }
   __syncthreads();
-  float* out_base = out + ((size_t)n * hw + q0) * C + (size_t)head * ch;
+  E* out_base = out + ((size_t)n * hw + q0) * C + (size_t)head * ch;
   for (int i = tid; i < nq * ch; i += ATTN_THREADS) {
     const int qi = i / ch, c = i - qi * ch;
-    out_base[(size_t)qi * C + c] = sO[qi * ld + c] / sL[qi];
+    out_base[(size_t)qi * C + c] = from_f32<E>(sO[qi * ld + c] / sL[qi]);  // rounded once
   }
 }
 
-template <int T>
-cudaError_t launch_attention(const float* qkv, float* out, int n, int hw, int heads,
+template <int T, class E>
+cudaError_t launch_attention(const E* qkv, E* out, int n, int hw, int heads,
                              int ch, float eps, cudaStream_t stream) {
   const size_t smem = attn_smem_floats(T, ch) * sizeof(float);
   static const cudaError_t attr = cudaFuncSetAttribute(  // once per instantiation
-      pixelnorm_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+      pixelnorm_attention_kernel<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMaxSmem);
   if (attr != cudaSuccess) return attr;
   dim3 grid(n * heads, (hw + T - 1) / T);
-  pixelnorm_attention_kernel<T><<<grid, ATTN_THREADS, smem, stream>>>(qkv, out, hw, heads,
-                                                                      ch, eps);
+  pixelnorm_attention_kernel<T, E><<<grid, ATTN_THREADS, smem, stream>>>(qkv, out, hw, heads,
+                                                                         ch, eps);
   return cudaGetLastError();
+}
+
+// The CUDA-core kernel with the largest query tile T (64 down to 8) whose
+// shared memory fits, at ch channels a head.
+template <class E>
+cudaError_t launch_attention_cc(const E* qkv, E* out, int n, int hw, int heads, int ch,
+                                float eps, cudaStream_t stream) {
+  if (attn_smem_floats(64, ch) * sizeof(float) <= kMaxSmem)
+    return launch_attention<64, E>(qkv, out, n, hw, heads, ch, eps, stream);
+  if (attn_smem_floats(32, ch) * sizeof(float) <= kMaxSmem)
+    return launch_attention<32, E>(qkv, out, n, hw, heads, ch, eps, stream);
+  if (attn_smem_floats(16, ch) * sizeof(float) <= kMaxSmem)
+    return launch_attention<16, E>(qkv, out, n, hw, heads, ch, eps, stream);
+  if (attn_smem_floats(8, ch) * sizeof(float) <= kMaxSmem)
+    return launch_attention<8, E>(qkv, out, n, hw, heads, ch, eps, stream);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -572,12 +591,10 @@ cudaError_t launch_attention_tc(const E* qkv, E* out, int n, int hw, int heads,
 // the same rule for the CPU; the card tests and chip_smoke.py hold the two equal.
 extern "C" int tdt_attention_path(int ch) { return ch == 16 || ch == 32 || ch == 64; }
 
-// dtype (tdt::DT_*): float32 qkv and output, any width; or a bf16 / fp16
-// qkv and output (the Pallas kernel widens qkv to float32 and writes
-// qkv.dtype), at the tensor-core widths only: pixelnorm_attention_tc<CH, E>
-// widens each 16-bit value to float32 as it fills its tiles, runs the pixel
-// norm, the softmax and both 3xTF32 products as for float32, and rounds the
-// output once.  A 16-bit qkv of another width is refused.
+// dtype (tdt::DT_*): float32, bf16 or fp16 qkv and output, any width (the
+// Pallas kernel widens qkv to float32 and writes qkv.dtype).  Each kernel
+// widens a 16-bit value to float32 as it stages it, runs the pixel norm, the
+// softmax and both products as for float32, and rounds the output once.
 extern "C" int tdt_pixelnorm_attention(const void* qkv, void* out, int n, int hw, int heads,
                                        int ch, float eps, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -590,21 +607,13 @@ extern "C" int tdt_pixelnorm_attention(const void* qkv, void* out, int n, int hw
       if (ch == 32) return (int)tdt::launch_attention_tc<32, float>(q, o, n, hw, heads, eps, s);
       return (int)tdt::launch_attention_tc<64, float>(q, o, n, hw, heads, eps, s);
     }
-    if (tdt::attn_smem_floats(64, ch) * sizeof(float) <= tdt::kMaxSmem)
-      return (int)tdt::launch_attention<64>(q, o, n, hw, heads, ch, eps, s);
-    if (tdt::attn_smem_floats(32, ch) * sizeof(float) <= tdt::kMaxSmem)
-      return (int)tdt::launch_attention<32>(q, o, n, hw, heads, ch, eps, s);
-    if (tdt::attn_smem_floats(16, ch) * sizeof(float) <= tdt::kMaxSmem)
-      return (int)tdt::launch_attention<16>(q, o, n, hw, heads, ch, eps, s);
-    if (tdt::attn_smem_floats(8, ch) * sizeof(float) <= tdt::kMaxSmem)
-      return (int)tdt::launch_attention<8>(q, o, n, hw, heads, ch, eps, s);
-    return (int)cudaErrorInvalidValue;
+    return (int)tdt::launch_attention_cc(q, o, n, hw, heads, ch, eps, s);
   }
-  if (!tdt_attention_path(ch)) return (int)cudaErrorInvalidValue;
   return (int)tdt::by_dtype(dtype, [&](auto* e) {
     using E = std::remove_pointer_t<decltype(e)>;
     const E* q = static_cast<const E*>(qkv);
     E* o = static_cast<E*>(out);
+    if (!tdt_attention_path(ch)) return tdt::launch_attention_cc(q, o, n, hw, heads, ch, eps, s);
     if (ch == 16) return tdt::launch_attention_tc<16, E>(q, o, n, hw, heads, eps, s);
     if (ch == 32) return tdt::launch_attention_tc<32, E>(q, o, n, hw, heads, eps, s);
     return tdt::launch_attention_tc<64, E>(q, o, n, hw, heads, eps, s);

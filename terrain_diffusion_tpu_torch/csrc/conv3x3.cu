@@ -17,21 +17,23 @@
 // resident while it walks its pixel tiles, and the halo of the next tile
 // loads while this one computes (6-channel rows are 24 bytes, so they take
 // 4-byte copies).  The 64 -> 1 head runs the direct conv of conv3x3.cuh on
-// the CUDA cores: one block per 16 x 32 pixel tile, the input staged 8
-// channels at a time, so no lane computes a channel that does not exist.
-// The 1-pixel halo is staged once per tile in shared memory (the TPU kernel
-// carried it between sequential grid steps; CUDA blocks run in no order),
-// and the image border is a bounds check instead of a row mask.
+// the CUDA cores (conv3x3_head_kernel): each warp walks a column strip down
+// the map and keeps three rows of partial sums, so every input row is read
+// once (the TPU kernel carried its halo between sequential grid steps; here
+// a warp's run of rows carries it), through a per-warp ring of 16-byte
+// cp.async copies; the image border is zero fill instead of a row mask.
 //
 // bf16 / fp16 (the Pallas kernel on a 16-bit x: MXU passes at
 // Precision.DEFAULT, output in x.dtype): x, the weight and y are 16-bit,
 // the sums float32, the output rounded once, each conv on the core
-// conv_wgmma.cuh's conv16_path picks.  The input conv runs the 16-bit
-// mma.sync core's one pass in K chunks of 8 channels (m16n8k8; its 6
-// channels staged as 4-byte pairs), and stays bound by its output bytes, now
-// 2 bytes a value (33.6 MB for one 512x512 tile); the head reads bf16, sums
-// float32 FMAs on the CUDA cores and is bound by its input bytes; a conv
-// with Cin % 16 == 0 and Cout % 64 == 0 runs on the wgmma core.
+// conv_wgmma.cuh's conv16_path picks.  The input conv runs the in-conv
+// kernel there (in_conv16_kernel: one GEMM with K = 9 taps x 8 channels
+// padded to 80 on mma.sync, the weights resident, the output tile rounded
+// into shared memory and written by one TMA store) and stays bound by its
+// output bytes, now 2 bytes a value (33.6 MB for one 512x512 tile); the head
+// reads bf16 / fp16, sums float32 FMAs on the CUDA cores and is bound by its
+// input bytes; a conv with Cin % 16 == 0 and Cout % 64 == 0 runs on the
+// wgmma core.
 #include "conv_wgmma.cuh"
 
 // dtype (tdt::DT_*): float32 x, y and HWIO weight; or bf16 / fp16 x, y and

@@ -60,9 +60,9 @@
 //   resident while it walks its pixel tiles.
 // - Epilogues (gain + silu, residual mix + clip) run on the accumulator
 //   fragments in registers and store straight to device memory.
-// - The 64 -> 1 head keeps a direct conv on the CUDA cores (see
-//   conv3x3_head_kernel below): it is bound by its input bytes, and the
-//   tensor-core tiles measured slower on it.
+// - The 64 -> 1 head runs a direct conv on the CUDA cores that streams its
+//   input once (conv3x3_head_kernel below): it is bound by its input
+//   bytes, and the tensor-core tiles measured slower on it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,6 +73,9 @@
 #include <type_traits>
 
 namespace tdt {
+
+// Largest shared memory a block may take on sm_90 (227 KB).
+constexpr size_t kMaxSmem = 232448;
 
 enum InAct { IN_NONE = 0, IN_SILU = 1 };
 enum Epilogue { EPI_NONE = 0, EPI_GAIN_SILU = 1, EPI_RESIDUAL = 2 };
@@ -521,115 +524,288 @@ using WideTile = ConvTile<KS, 16, 4, 2, 2, 4>;
 template <int KS>
 using InTile = ConvTile<KS, 8, 4, 2, 2, 4>;
 
-// The narrow head (Cout <= 8: the decoder's 64 -> 1 output conv) keeps the
-// direct conv on the CUDA cores: it reads 64 values per pixel and writes one,
-// so it is bound by its input bytes, and the tensor-core core (n8 tiles,
-// staged in 16- and 32-channel chunks) measured slower on it on an H100 at
-// 512 x 512.  One block computes a 16 x 32 pixel tile of one output channel;
-// the input is staged 8 channels at a time with its 1-pixel halo, and each
-// thread accumulates 2 pixels in float32 FMAs, reusing each staged row
-// across the three horizontal taps.  Types: the input TI (float32, or the
-// 16-bit E), the operand E (a 16-bit operand is rounded to E after the
-// activation), the weight in E, HWIO or, with KMAJOR, (tap, Cout, Cin), and
-// the output TO; float32 throughout for the float32 conv.
-template <class TI, class E, class TO, bool KMAJOR, int ACT, int EPI>
-__global__ void __launch_bounds__(256)
-conv3x3_head_kernel(const TI* __restrict__ x, const E* __restrict__ w, TO* __restrict__ y,
-                    int N, int H, int W, int Cin, int Cout, EpiArgs epi) {
-  constexpr int NT = 256, TH = 16, TW = 32, CI = 8, PX = 2;  // NT * PX == TH * TW
-  constexpr int CIP = CI + 1;  // padded channel stride: spreads smem banks
-  constexpr int IN_W = TW + 2;
-  constexpr int IN_ELEMS = (TH + 2) * IN_W;
+// ---------------------------------------------------------------------------
+// The narrow head: 3x3 convs to at most 8 output channels
+// ---------------------------------------------------------------------------
+//
+// The decoder's 64 -> 1 output conv (32 -> 1 in the 32-channel guide), in
+// float32 and in the 16-bit types, and a fused block's convs where Cout <= 8.
+// What bounds it on the H100: its input bytes.  It reads Cin values a pixel
+// and writes Cout <= 8, and its 9 * Cin FMAs a pixel (one output channel)
+// are a small fraction of the CUDA cores' rate, so tensor cores would add
+// nothing (an n8 tile of them measured slower on it).
+// What the design does:
+// - Every input row is read from device memory once: a warp walks a column
+//   strip of the map down its rows and keeps three rows of partial sums in
+//   registers.  Input row r adds its taps dy = 0, 1, 2 to output rows
+//   r + 1, r and r - 1, and output row r - 1 is complete after row r.  The
+//   (image, strip, output channel) columns are cut into runs of rows, one
+//   run per resident warp, so every warp of the persistent grid walks the
+//   same number of rows (the run's first and last rows are its halo).
+// - 16-byte words: a group of lp lanes (a power of two, at most 8) owns a
+//   pixel's channels, each lane V = 16 / sizeof(E) consecutive channels of
+//   it at a time (8 in 16 bits, 4 in float32), and HEAD_P = 4 consecutive
+//   output pixels across the row, so a step (one row, one channel word a
+//   lane) is HEAD_P + 2 words a lane.
+// - Steps stream through a ring in shared memory: each lane copies its own
+//   words of the step HEAD_STAGES - 1 ahead with 16-byte cp.async (zero
+//   fill outside the image: SAME padding), and reads back only what it
+//   copied, so the ring needs no barrier; each SM keeps about 96 KB in
+//   flight.  A ragged Cin (no 16-byte words) is staged element by element.
+// - Products are float32 FMAs (widened 16-bit values, exact), one channel
+//   of the lane's word at a time: its HEAD_P + 2 values times the channel's
+//   9 taps, which sit in shared memory as float32 rows of 12 (three 16-byte
+//   words, shared by the lanes of one channel word), so only a channel's
+//   values and taps are live.  A word's V rows are followed by one spare
+//   16-byte word, so that the lp lanes of a group, each on its own channel
+//   word, read distinct banks.  A lane sums, for each output pixel, its
+//   channels over the three input rows (dy = 0, 1, 2), within a row its
+//   channel words, then the word's channels, then dx = 0, 1, 2; the lp
+//   lanes of a pixel group then add their sums with a shuffle butterfly
+//   (tests/test_torch_narrow_conv.py models this order).
+// - The output row is written as whole words where Cout == 1 (HEAD_P
+//   values of a group in one 8- or 16-byte store), else element by element.
+// Types: E is float32 (weight HWIO, (3, 3, Cin, Cout)) or bf16 / fp16
+// (weight K-major, (9, Cout, Cin)); input and output are E; the activation
+// (float32 blocks' conv0: silu of the staged input) and the epilogues are
+// conv_tc_kernel's.
 
-  __shared__ float s_in[IN_ELEMS * CIP];
-  __shared__ float s_w[9 * CI];
+constexpr int HEAD_NT = 256;         // 8 independent warps
+constexpr int HEAD_P = 4;            // output pixels of one lane group, across a row
+constexpr int HEAD_LP = 8;           // lanes per pixel group, at most
+constexpr int HEAD_MIN_ROWS = 4;     // rows of a warp's run, at least
+constexpr int HEAD_STAGES = 4;       // the ring: steps in flight ahead of the one computed
+constexpr int HEAD_STEP = (HEAD_P + 2) * 32 * 16;  // bytes of one step of one warp
+constexpr int HEAD_RING = HEAD_STAGES * HEAD_STEP * (HEAD_NT / 32);  // bytes of a block's rings
+constexpr int HEAD_TAPS = 12;        // floats of a channel's 9 taps in shared memory
+// floats of a channel word's taps in shared memory: V rows and a spare 16-byte word
+__host__ __device__ constexpr int head_word_floats(int v) { return v * HEAD_TAPS + 4; }
 
-  const int tid = threadIdx.x;
-  const int row = (tid * PX) / TW;
-  const int col0 = (tid * PX) % TW;
-  const int n = blockIdx.z / Cout;
-  const int co = blockIdx.z % Cout;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
-  const TI* xn = x + (size_t)n * H * W * Cin;
+// The tiling of one head launch (conv3x3_head_kernel), from the launcher.
+struct HeadGrid {
+  int lp, wpl, words;  // lanes per pixel group, channel words per lane, words per pixel
+  int span, nstrips;   // output pixels a strip is wide (32 / lp * HEAD_P), strips across
+  int rows;            // rows of each warp's run
+  long long total;     // N * nstrips * Cout * H: the rows of every column
+  int vec, vec_out;    // 16-byte input words; one store of a group's HEAD_P outputs
+};
 
-  float acc[PX] = {0.0f, 0.0f};
-  for (int c0 = 0; c0 < Cin; c0 += CI) {
-    auto stage = [&](int i) {
-      const int ci = i % CI;
-      const int pos = i / CI;
-      const int gy = y0 + pos / IN_W - 1;
-      const int gx = x0 + pos % IN_W - 1;
-      float v = 0.0f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + ci < Cin) {
-        v = load_f32(xn + ((size_t)gy * W + gx) * Cin + c0 + ci);
-        if (ACT == IN_SILU) v = silu(v);
-        if (ACT == IN_SILU || !std::is_same<TI, E>::value)
-          v = to_f32(from_f32<E>(v));  // the operand is E (an input in E already is)
-      }
-      s_in[pos * CIP + ci] = v;
-    };
-    if constexpr (std::is_same<TI, float>::value) {
-      for (int i = tid; i < IN_ELEMS * CI; i += NT) stage(i);
+// the first n < V values at p as one 16-byte word of E, zeros after them
+// (a ragged Cin, which takes no 16-byte copies)
+template <class E>
+__device__ __forceinline__ uint4 head_word(const E* p, int n) {
+  constexpr int V = 16 / sizeof(E);
+  uint32_t b[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (k >= n) break;
+    if constexpr (std::is_same<E, float>::value) {
+      b[k] = __float_as_uint(p[k]);
     } else {
-      // a 16-bit input: unrolled, this loop's addresses go to local memory
-      // at the 40 registers ptxas picks; rolled, the kernel fits in 32
-#pragma unroll 1
-      for (int i = tid; i < IN_ELEMS * CI; i += NT) stage(i);
+      b[k / 2] |= (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p + k)) << (16 * (k % 2));
     }
-    if (tid < 9 * CI) {  // (tap, ci)
-      const int ci = tid % CI, tap = tid / CI, c = c0 + ci;
-      s_w[tid] = c >= Cin  ? 0.0f
-                 : KMAJOR ? load_f32(w + ((size_t)tap * Cout + co) * Cin + c)
-                          : load_f32(w + ((size_t)tap * Cin + c) * Cout + co);
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int ci = 0; ci < CI; ++ci) {
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float iv[PX + 2];
-#pragma unroll
-        for (int q = 0; q < PX + 2; ++q)
-          iv[q] = s_in[((row + dy) * IN_W + col0 + q) * CIP + ci];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float wv = s_w[(dy * 3 + dx) * CI + ci];
-#pragma unroll
-          for (int p = 0; p < PX; ++p) acc[p] = fmaf(iv[p + dx], wv, acc[p]);
-        }
-      }
-    }
-    __syncthreads();
   }
+  return make_uint4(b[0], b[1], b[2], b[3]);
+}
 
-  const int gy = y0 + row;
-  if (gy >= H) return;
-#pragma unroll
-  for (int p = 0; p < PX; ++p) {
-    const int gx = x0 + col0 + p;
-    if (gx >= W) continue;
-    const size_t off = (((size_t)n * H + gy) * W + gx) * Cout + co;
-    float v = acc[p];
-    if (EPI == EPI_GAIN_SILU) {
-      v = silu(v * epi.gain[(size_t)n * Cout + co]);
-    } else if (EPI == EPI_RESIDUAL) {
-      const float r = epi.residual ? epi.residual[off]
-                                   : to_f32(reinterpret_cast<const E*>(epi.residual_h)[off]);
-      v = (r * epi.res_a + v * epi.res_b) / epi.res_norm;
-      if (epi.clip) v = fminf(fmaxf(v, -epi.clip_val), epi.clip_val);
-    }
-    y[off] = from_f32<TO>(v);
+// value k of a 16-byte word of E as a float (exact); k is a constant after
+// unrolling
+template <class E>
+__device__ __forceinline__ float head_chan(const uint4& q, int k) {
+  constexpr int PER = 4 / sizeof(E);  // values per 32-bit part
+  const int part = k / PER;
+  const uint32_t b = part == 0 ? q.x : part == 1 ? q.y : part == 2 ? q.z : q.w;
+  if constexpr (std::is_same<E, float>::value) {
+    return __uint_as_float(b);
+  } else {
+    const float2 v = unpack2(b, static_cast<E*>(nullptr));
+    return k % 2 ? v.y : v.x;
   }
 }
 
-template <class TI, class E, class TO, bool KMAJOR, int ACT, int EPI>
-cudaError_t launch_conv3x3_head(const TI* x, const E* w, TO* y, int N, int H, int W, int Cin,
+template <class E, int ACT, int EPI>
+__global__ void __launch_bounds__(HEAD_NT, 2)
+conv3x3_head_kernel(const E* __restrict__ x, const E* __restrict__ w, E* __restrict__ y, int N,
+                    int H, int W, int Cin, int Cout, const HeadGrid hg, const EpiArgs epi) {
+  constexpr int V = 16 / sizeof(E), P = HEAD_P, WF = head_word_floats(V);
+  // the warps' rings, then the weights (co, word, V x HEAD_TAPS + 4) in float32
+  extern __shared__ __align__(16) unsigned char head_smem[];
+  float* head_w = reinterpret_cast<float*>(head_smem + HEAD_RING);
+  const int lp = hg.lp, wpl = hg.wpl;
+  for (int i = threadIdx.x; i < Cout * hg.words * WF; i += HEAD_NT) {
+    const int j = i % WF, word = (i / WF) % hg.words, co = i / (WF * hg.words);
+    const int tap = j % HEAD_TAPS, c = word * V + j / HEAD_TAPS;
+    float v = 0.0f;
+    if (j < V * HEAD_TAPS && c < Cin && tap < 9)
+      v = std::is_same<E, float>::value ? load_f32(w + ((size_t)tap * Cin + c) * Cout + co)
+                                        : load_f32(w + ((size_t)tap * Cout + co) * Cin + c);
+    head_w[i] = v;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, grp = lane / lp, gl = lane % lp;
+  // this lane's word q of ring stage st
+  unsigned char* ring = head_smem + (threadIdx.x / 32) * HEAD_STAGES * HEAD_STEP + lane * 16;
+  auto slot = [&](int st, int q) { return ring + (st * (P + 2) + q) * 32 * 16; };
+  long long t = ((long long)blockIdx.x * (HEAD_NT / 32) + threadIdx.x / 32) * hg.rows;
+  const long long t_end = t + hg.rows < hg.total ? t + hg.rows : hg.total;
+  while (t < t_end) {  // the run crosses column boundaries: one band per column
+    const long long col = t / H;
+    const int y0 = (int)(t - col * H);
+    const int y1 = (int)(H - y0 < t_end - t ? H : y0 + (t_end - t));
+    t += y1 - y0;
+    const int co = (int)(col % Cout);
+    const long long sc = col / Cout;
+    const int strip = (int)(sc % hg.nstrips), n = (int)(sc / hg.nstrips);
+    const int x0 = strip * hg.span + grp * P;  // the group's first output pixel
+    const E* xn = x + (size_t)n * H * W * Cin;
+    const float* wco = head_w + (size_t)co * hg.words * WF;
+    const int steps = (y1 - y0 + 2) * wpl;
+
+    // step s: input row y0 - 1 + s / wpl, channel word gl + (s % wpl) * lp,
+    // into ring stage s % HEAD_STAGES
+    auto stage = [&](int s) {
+      const int r = y0 - 1 + s / wpl, c0 = (gl + (s % wpl) * lp) * V;
+      const bool row_ok = r >= 0 && r < H && c0 < Cin;
+#pragma unroll
+      for (int q = 0; q < P + 2; ++q) {
+        const int xx = x0 - 1 + q;
+        const bool ok = row_ok && xx >= 0 && xx < W;
+        const E* src = ok ? xn + ((size_t)r * W + xx) * Cin + c0 : x;
+        unsigned char* dst = slot(s % HEAD_STAGES, q);
+        if (hg.vec)
+          cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), ok);
+        else
+          *reinterpret_cast<uint4*>(dst) = ok ? head_word(src, Cin - c0)
+                                              : make_uint4(0u, 0u, 0u, 0u);
+      }
+    };
+
+    float acc[3][P];  // output rows r - 1, r, r + 1 of input row r
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int p = 0; p < P; ++p) acc[j][p] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < HEAD_STAGES - 1; ++s) {
+      if (s < steps) stage(s);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      if (s + HEAD_STAGES - 1 < steps) stage(s + HEAD_STAGES - 1);
+      cp_async_commit();
+      cp_async_wait<HEAD_STAGES - 1>();  // this lane's copies of step s have landed
+      const int r = y0 - 1 + s / wpl, wi = s % wpl, c0 = (gl + wi * lp) * V;
+      if (r >= 0 && r < H && c0 < Cin) {
+        uint4 cur[P + 2];
+#pragma unroll
+        for (int q = 0; q < P + 2; ++q)
+          cur[q] = *reinterpret_cast<const uint4*>(slot(s % HEAD_STAGES, q));
+#pragma unroll
+        for (int e = 0; e < V; ++e) {  // channel c0 + e
+          float f[P + 2];
+#pragma unroll
+          for (int q = 0; q < P + 2; ++q) {
+            f[q] = head_chan<E>(cur[q], e);
+            if (ACT == IN_SILU) f[q] = silu(f[q]);
+          }
+          const float4* wp =
+              reinterpret_cast<const float4*>(wco + (c0 / V) * WF + e * HEAD_TAPS);
+          const float4 w0 = wp[0], w1 = wp[1], w2 = wp[2];
+          const float wt[9] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w, w2.x};
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+              for (int p = 0; p < P; ++p)
+                acc[2 - dy][p] = fmaf(f[p + dx], wt[dy * 3 + dx], acc[2 - dy][p]);
+        }
+      }
+      if (wi == wpl - 1) {  // row r is in: output row r - 1 is complete
+        if (r > y0) {
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            for (int off = lp / 2; off > 0; off /= 2)
+              acc[0][p] += __shfl_xor_sync(0xffffffffu, acc[0][p], off);
+          const size_t base = ((size_t)n * H + (r - 1)) * W;
+          if (hg.vec_out && x0 + P <= W) {  // Cout == 1: the group's P outputs in one store
+            if (gl == 0) {
+              float v[P];
+#pragma unroll
+              for (int p = 0; p < P; ++p)
+                v[p] = epilogue<EPI, E>(acc[0][p], epi, n, Cout, co, base + x0 + p);
+              if constexpr (std::is_same<E, float>::value) {
+                *reinterpret_cast<float4*>(y + base + x0) = make_float4(v[0], v[1], v[2], v[3]);
+              } else {
+                *reinterpret_cast<uint2*>(y + base + x0) =
+                    make_uint2(pack2<E>(v[0], v[1]), pack2<E>(v[2], v[3]));
+              }
+            }
+          } else {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              if (p % lp != gl || x0 + p >= W) continue;
+              const size_t off = (base + x0 + p) * Cout + co;
+              y[off] = from_f32<E>(epilogue<EPI, E>(acc[0][p], epi, n, Cout, co, off));
+            }
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          acc[0][p] = acc[1][p];
+          acc[1][p] = acc[2][p];
+          acc[2][p] = 0.0f;
+        }
+      }
+    }
+    cp_async_wait<0>();  // the run's tail: no copy outlives it
+  }
+}
+
+template <class E, int ACT, int EPI>
+cudaError_t launch_conv3x3_head(const E* x, const E* w, E* y, int N, int H, int W, int Cin,
                                 int Cout, const EpiArgs& epi, cudaStream_t stream) {
-  dim3 grid((W + 31) / 32, (H + 15) / 16, N * Cout);
-  conv3x3_head_kernel<TI, E, TO, KMAJOR, ACT, EPI><<<grid, 256, 0, stream>>>(
-      x, w, y, N, H, W, Cin, Cout, epi);
+  constexpr int V = 16 / sizeof(E);
+  auto kernel = conv3x3_head_kernel<E, ACT, EPI>;
+  // once per kernel: the register-bound blocks per SM, with any shared memory allowed
+  static const LaunchInfo info = [&] {
+    LaunchInfo i = query_launch(kernel, HEAD_NT, 0);
+    if (i.err == cudaSuccess)
+      i.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kMaxSmem);
+    return i;
+  }();
+  if (info.err != cudaSuccess) return info.err;
+  if (Cout < 1 || Cout > 8 || Cin < 1) return cudaErrorInvalidValue;
+  HeadGrid hg;
+  hg.words = (Cin + V - 1) / V;
+  hg.lp = 1;
+  while (hg.lp < HEAD_LP && hg.lp < hg.words) hg.lp *= 2;
+  hg.wpl = (hg.words + hg.lp - 1) / hg.lp;
+  hg.span = 32 / hg.lp * HEAD_P;
+  hg.nstrips = (W + hg.span - 1) / hg.span;
+  hg.total = (long long)N * hg.nstrips * Cout * H;
+  if (hg.total == 0) return cudaSuccess;
+  const size_t smem = HEAD_RING + (size_t)Cout * hg.words * head_word_floats(V) * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  // resident warps: the register bound, and the shared memory of an SM
+  // (228 KB, 1 KB of it reserved per block)
+  int per_sm = (int)(233472 / (smem + 1024));
+  per_sm = per_sm < info.blocks_per_sm ? per_sm : info.blocks_per_sm;
+  per_sm = per_sm > 0 ? per_sm : 1;
+  const long long warps = (long long)per_sm * info.sms * (HEAD_NT / 32);
+  long long rows = (hg.total + warps - 1) / warps;
+  rows = rows > HEAD_MIN_ROWS ? rows : HEAD_MIN_ROWS;
+  if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  hg.rows = (int)rows;
+  const long long runs = (hg.total + rows - 1) / rows;
+  const long long blocks = (runs + HEAD_NT / 32 - 1) / (HEAD_NT / 32);
+  auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  hg.vec = Cin % V == 0 && a16(x);
+  hg.vec_out = Cout == 1 && W % HEAD_P == 0 && a16(y);
+  kernel<<<(unsigned)blocks, HEAD_NT, smem, stream>>>(x, w, y, N, H, W, Cin, Cout, hg, epi);
   return cudaGetLastError();
 }
 
@@ -639,8 +815,7 @@ template <int KS, int ACT, int EPI>
 cudaError_t launch_conv(const float* x, const float* w, float* y, int N, int H, int W,
                         int Cin, int Cout, const EpiArgs& epi, cudaStream_t stream) {
   if (KS == 3 && Cout <= 8)
-    return launch_conv3x3_head<float, float, float, false, ACT, EPI>(x, w, y, N, H, W, Cin,
-                                                                     Cout, epi, stream);
+    return launch_conv3x3_head<float, ACT, EPI>(x, w, y, N, H, W, Cin, Cout, epi, stream);
   if (Cin <= 8)
     return launch_conv_tc<InTile<KS>, ACT, EPI>(x, w, y, N, H, W, Cin, Cout, epi, stream);
   return launch_conv_tc<WideTile<KS>, ACT, EPI>(x, w, y, N, H, W, Cin, Cout, epi, stream);
@@ -653,7 +828,8 @@ cudaError_t launch_conv(const float* x, const float* w, float* y, int N, int H, 
 // Counterpart of the Pallas kernels' native MXU passes on bf16 / fp16 inputs
 // (pallas_block.py::_dot_precision: Precision.DEFAULT off float32): the
 // operands are the 16-bit type E, the products run on mma.sync.m16n8k16
-// (m16n8k8 for K chunks of 8 channels) with float32 accumulators, one pass.
+// (K chunks of 16 channels, zeros past Cin) with float32 accumulators, one
+// pass.
 // Rounding points, as the JAX kernel's:
 // - the operand is E, as it arrives: the block's prep pass (fused_block.cu)
 //   writes the rounded operands round(xs) and round(silu(xs));
@@ -663,12 +839,12 @@ cudaError_t launch_conv(const float* x, const float* w, float* y, int N, int H, 
 //   keeps it).
 // Layouts: x (N, H, W, Cin) in E, the weight (KS * KS, Cout, Cin) in E, K
 // contiguous (the wrapper lays it out), y (N, H, W, Cout) in E or float32.
-// conv_wgmma.cuh's launch_conv_h chooses between this core, the wgmma core
-// and the head kernel.
+// conv_wgmma.cuh's launch_conv_h chooses between this core, the wgmma core,
+// the in-conv kernel and the head kernel; this core takes the shapes none
+// of the others does.
 // What bounds it on the H100: the decoder's convs do 9 * Cin * Cout FMAs per
 // pixel against 2 * (Cin + Cout) bytes, so the 16-bit tensor cores bound
-// them: FLOPs / 989 TFLOP/s.  The 6 -> 64 input conv and the 64 -> 1 head
-// stay bound by their bytes.
+// them: FLOPs / 989 TFLOP/s.
 // What the design does: the tiling, ring, persistent blocks and epilogues of
 // conv_tc_kernel, with 16-bit tiles.  Staged rows are padded to 24 halves
 // (48 bytes, a multiple of the 16-byte copies): with two neighbouring
@@ -697,28 +873,12 @@ __device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4],
   }
 }
 
-// d += a (16x8) * b (8x8): a[0] (g, 2t..2t+1), a[1] (g + 8, 2t..); b (k 2t.., n g)
-template <class E>
-__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
-  if constexpr (std::is_same<E, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b));
-  }
-}
-
-__device__ __forceinline__ void cp_async16_raw(void* dst, const void* src, bool full) {
+// 16-byte asynchronous copy of the first `bytes` (0..16) bytes at src, the
+// rest zero-filled (src is not read when bytes is 0)
+__device__ __forceinline__ void cp_async16_raw(void* dst, const void* src, int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(full ? 16 : 0));
+               "r"(bytes));
 }
 __device__ __forceinline__ void cp_async4_raw(void* dst, const void* src, bool full) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -736,7 +896,7 @@ struct ConvTileH {
   static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
   static constexpr int STAGES = 2;
   static constexpr int NT = WARPS_M * WARPS_N * 32;
-  static_assert(CK == 8 || CK == 16, "K chunks are one k8 or one k16 step");
+  static_assert(CK == 16, "K chunks are one k16 step");
   static constexpr int TW = 16;
   static constexpr int TH = WARPS_M * WM;
   static constexpr int BN = WARPS_N * WN * 8;
@@ -797,7 +957,7 @@ conv_h_kernel(const E* __restrict__ x, const E* __restrict__ w, void* __restrict
         const int c = c0 + 8 * q;
         const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
         cp_async16_raw(s_in + pos * T::CIP + 8 * q,
-                       ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok);
+                       ok ? xn + ((size_t)gy * W + gx) * Cin + c : xn, ok ? 16 : 0);
       }
     } else if (vec_in == 1) {
       constexpr int Q = CK / 2;
@@ -831,7 +991,7 @@ conv_h_kernel(const E* __restrict__ x, const E* __restrict__ w, void* __restrict
         const int c = c0 + 8 * q;
         const bool ok = c < Cin && co < Cout;
         cp_async16_raw(s_w + row * T::CKP + 8 * q,
-                       ok ? w + ((size_t)tap * Cout + co) * Cin + c : w, ok);
+                       ok ? w + ((size_t)tap * Cout + co) * Cin + c : w, ok ? 16 : 0);
       }
     } else if (vec_w == 1) {
       constexpr int Q = CK / 2;
@@ -885,33 +1045,20 @@ conv_h_kernel(const E* __restrict__ x, const E* __restrict__ w, void* __restrict
       const int dy = tap / KS, dx = tap - dy * KS;
       const E* a_tap = a_base + (dy * T::IN_W + dx) * T::CIP;
       const E* b_tap = b_base + tap * T::BN * T::CKP;
-      if constexpr (CK == 16) {
-        uint32_t b[WN][2];
+      uint32_t b[WN][2];
 #pragma unroll
-        for (int j = 0; j < WN; ++j) {
-          const E* bp = b_tap + j * 8 * T::CKP;
-          b[j][0] = lds32(bp);
-          b[j][1] = lds32(bp + 8);
-        }
+      for (int j = 0; j < WN; ++j) {
+        const E* bp = b_tap + j * 8 * T::CKP;
+        b[j][0] = lds32(bp);
+        b[j][1] = lds32(bp + 8);
+      }
 #pragma unroll
-        for (int i = 0; i < WM; ++i) {
-          const E* ap = a_tap + i * T::IN_W * T::CIP;
-          const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * T::CIP), lds32(ap + 8),
-                                 lds32(ap + 8 * T::CIP + 8)};
+      for (int i = 0; i < WM; ++i) {
+        const E* ap = a_tap + i * T::IN_W * T::CIP;
+        const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * T::CIP), lds32(ap + 8),
+                               lds32(ap + 8 * T::CIP + 8)};
 #pragma unroll
-          for (int j = 0; j < WN; ++j) mma_k16<E>(acc[i][j], a, b[j]);
-        }
-      } else {
-        uint32_t b[WN];
-#pragma unroll
-        for (int j = 0; j < WN; ++j) b[j] = lds32(b_tap + j * 8 * T::CKP);
-#pragma unroll
-        for (int i = 0; i < WM; ++i) {
-          const E* ap = a_tap + i * T::IN_W * T::CIP;
-          const uint32_t a[2] = {lds32(ap), lds32(ap + 8 * T::CIP)};
-#pragma unroll
-          for (int j = 0; j < WN; ++j) mma_k8<E>(acc[i][j], a, b[j]);
-        }
+        for (int j = 0; j < WN; ++j) mma_k16<E>(acc[i][j], a, b[j]);
       }
     }
 
@@ -981,8 +1128,6 @@ cudaError_t launch_conv_h_tc(const E* x, const E* w, void* y, int N, int H, int 
 
 template <int KS>
 using WideTileH = ConvTileH<KS, 16, 4, 2, 2, 4>;
-template <int KS>
-using InTileH = ConvTileH<KS, 8, 4, 2, 2, 4>;
 
 // The entry points' dtype codes (ops/cuda_lib.py DTYPE_CODES).  by_dtype
 // calls f(static_cast<E*>(nullptr)) for the 16-bit type E of a code.

@@ -1,8 +1,9 @@
 // The 16-bit conv core on Hopper's warpgroup MMA (wgmma), fed by TMA: a
 // SAME-padded KS x KS convolution (KS = 3, or 1 for the block's 1x1
 // projection) over NHWC bf16 / fp16 tensors, with float32 sums and the
-// epilogues of conv3x3.cuh.  At the end of this file, launch_conv_h, the one
-// chooser of every 16-bit conv, and conv16_path, its rule.
+// epilogues of conv3x3.cuh.  Before its end, the 16-bit in conv (Cin <= 8:
+// in_conv16_kernel), and at the end launch_conv_h, the one chooser of every
+// 16-bit conv, whose rule is conv16_path.
 //
 // Replaces, with conv3x3.cuh's 16-bit mma.sync core for the shapes it does
 // not take: terrain_diffusion_tpu/ops/pallas_block.py::fused_block_apply with
@@ -82,13 +83,14 @@ namespace tdt {
 // Which core a 16-bit KS x KS conv from Cin to Cout channels takes.  The
 // wrapper's mirror is ops/fused_block.py::conv16_path (same codes, same rule).
 enum Conv16Path { PATH_HEAD = 0, PATH_MMA_SYNC = 1, PATH_WGMMA_RESIDENT = 2,
-                  PATH_WGMMA_STREAMED = 3 };
+                  PATH_WGMMA_STREAMED = 3, PATH_IN_CONV = 4 };
 constexpr int WG_CK = 64;               // input channels per K chunk
 constexpr int WG_BN = 64;               // output channels per block
 constexpr int WG_RESIDENT_CHUNK_TAPS = 18;  // weight chunk-taps kept on chip
 
 inline int conv16_path(int ks, int cin, int cout) {
   if (ks == 3 && cout <= 8) return PATH_HEAD;
+  if (ks == 3 && cin <= 8 && cin % 2 == 0 && cout % 8 == 0) return PATH_IN_CONV;
   if (cin % 16 != 0 || cout % WG_BN != 0) return PATH_MMA_SYNC;
   const int chunks = (cin + WG_CK - 1) / WG_CK;
   if (ks * ks * chunks <= WG_RESIDENT_CHUNK_TAPS) return PATH_WGMMA_RESIDENT;
@@ -500,19 +502,289 @@ cudaError_t launch_conv_wgmma(const E* x, const E* w, void* y, int N, int H, int
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The 16-bit in conv: 3x3, Cin <= 8 and even, Cout % 8 == 0
+// ---------------------------------------------------------------------------
+//
+// The decoder's 6 -> 64 input conv (6 -> 32 in the 32-channel guide) on a
+// bf16 / fp16 x, with conv_h_kernel's rounding: 16-bit operands, float32
+// sums, one pass, the output rounded once.
+// What bounds it on the H100: its output bytes.  A pixel reads 2 * Cin bytes
+// and writes 2 * Cout (33.6 of the 36.7 MB of one 512 x 512 tile at 6 ->
+// 64); its 9 * Cin * Cout MACs a pixel, even padded to K = 80, take about a
+// quarter of the bytes' time on the tensor cores.
+// What the design does:
+// - One GEMM: M = pixels, N = a 64-channel slice of Cout, K = 9 taps x 8
+//   channels (Cin padded to 8 with zeros), padded to 80: five k16 steps of
+//   mma.sync m16n8k16, taps 2s and 2s + 1 in step s.  A block of 4 warps
+//   owns a tile of 8 x 16 pixels, a warp two rows of 16 (two m16 tiles) by
+//   all 8 n8 tiles of the slice.
+// - The weights stay in shared memory for the persistent block's life: its
+//   64 x 80 slice in rows of 88 halves, so that ldmatrix.x4 reads the B
+//   fragments of two n8 tiles with no bank conflict.
+// - The input: each of the tile's 10 halo rows is one contiguous run of
+//   18 * Cin halves of the NHWC tensor, copied as the 16-byte words that
+//   cover it (cp.async into a ring of IC_STAGES tiles; words past the tensor
+//   are zero-filled, so x must be 16-byte aligned).  A fragments are read
+//   straight from those runs, one 32-bit word per two channels (6-channel
+//   pixels put lane (g, t) on word 3 g + t: no bank conflict), with zero for
+//   the channels past Cin, pixels outside the image and the tenth tap:
+//   SAME padding by selection, with no fill pass.
+// - The output: the epilogue (none, gain + silu, residual mix + clip) runs
+//   on the float32 sums, which are rounded once to E and written into an
+//   8 x 16 pixel x 64 channel tile in shared memory, 128B-swizzled (lane
+//   (g, t) writes chunk j ^ g of pixel row g: 32 distinct banks); one TMA
+//   store (cp.async.bulk.tensor, clipped to the map and to Cout) writes the
+//   tile as whole 128-byte lines.  Two tiles alternate, so the store of one
+//   overlaps the copies and products of the next.
+// - Four blocks share an SM (53.6 KB of shared memory each).
+
+constexpr int IC_NT = 128;                    // 4 warps
+constexpr int IC_STAGES = 3;                  // input ring
+constexpr int IC_ROW = 320;                   // bytes of a staged halo row: 18 * 16 + 12 <= 320
+constexpr int IC_KP = 88;                     // halves of a weight row: K = 80, padded
+constexpr int IC_OUT = 8 * 16 * 128;          // bytes of an output tile
+constexpr int IC_W_BYTES = WG_BN * IC_KP * 2;
+constexpr int IC_IN_BYTES = 10 * IC_ROW;      // one ring stage: the tile's 10 halo rows
+constexpr int IC_SMEM = 2 * IC_OUT + IC_W_BYTES + IC_STAGES * IC_IN_BYTES;
+struct InConvTile {  // plan_conv's names
+  static constexpr int TW = 16, TH = 8, BN = WG_BN, CK = 8;
+};
+
+__device__ __forceinline__ uint32_t lds32_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {  // all but the newest N stores have read smem
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// orders this thread's shared-memory writes before the async proxy's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <class E, int EPI>
+__global__ void __launch_bounds__(IC_NT, 4)
+in_conv16_kernel(const E* __restrict__ x, const E* __restrict__ w,
+                 const __grid_constant__ CUtensorMap tmap_y, int N, int H, int W, int Cin,
+                 int Cout, const ConvGrid grid, const EpiArgs epi) {
+  extern __shared__ __align__(1024) unsigned char ic_smem[];
+  E* s_w = reinterpret_cast<E*>(ic_smem + 2 * IC_OUT);
+  unsigned char* s_in = ic_smem + 2 * IC_OUT + IC_W_BYTES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_nb = grid.n_nb, tiles_x = grid.tiles_x, tiles_y = grid.tiles_y;
+  const int co0 = (blockIdx.x % n_nb) * WG_BN;
+  const int my_items = (grid.n_items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int pix_bytes = 2 * Cin;
+  const long long x_bytes = (long long)N * H * W * pix_bytes;
+
+  // the block's weight slice: row co - co0, column tap * 8 + c; zeros past
+  // Cin, Cout and the ninth tap
+  for (int i = tid; i < WG_BN * IC_KP; i += IC_NT) {
+    const int col = i % IC_KP, co = co0 + i / IC_KP, tap = col / 8, c = col % 8;
+    s_w[i] = tap < 9 && c < Cin && co < Cout ? w[((size_t)tap * Cout + co) * Cin + c]
+                                             : from_f32<E>(0.0f);
+  }
+
+  auto item_tile = [&](int k, int& n, int& ty, int& tx) {
+    const int tile = ((int)blockIdx.x + k * (int)gridDim.x) / n_nb;
+    tx = tile % tiles_x;
+    ty = (tile / tiles_x) % tiles_y;
+    n = tile / (tiles_x * tiles_y);
+  };
+  // byte offset in x of halo row r's first pixel (x0 - 1) in tile (n, ty, tx)
+  auto run_start = [&](int n, int ty, int tx, int r) {
+    return (((long long)n * H + ty * 8 - 1 + r) * W + tx * 16 - 1) * pix_bytes;
+  };
+  // stage tile k into ring slot k % IC_STAGES: the 16-byte words covering
+  // each halo row inside the image
+  auto load_tile = [&](int k) {
+    int n, ty, tx;
+    item_tile(k, n, ty, tx);
+    unsigned char* slot = s_in + (k % IC_STAGES) * IC_IN_BYTES;
+    const int run = 18 * pix_bytes;
+#pragma unroll 1
+    for (int i = tid; i < 10 * (IC_ROW / 16); i += IC_NT) {
+      const int r = i / (IC_ROW / 16), q = i % (IC_ROW / 16);
+      const int gy = ty * 8 - 1 + r;
+      const long long start = run_start(n, ty, tx, r);
+      const long long a = (start & ~15LL) + 16 * q;
+      if (gy < 0 || gy >= H || a >= start + run) continue;
+      const bool in = a >= 0 && a < x_bytes;
+      const long long left = x_bytes - a;
+      const void* src = in ? static_cast<const void*>(reinterpret_cast<const char*>(x) + a)
+                           : static_cast<const void*>(x);
+      cp_async16_raw(slot + r * IC_ROW + 16 * q, src, in ? (left < 16 ? (int)left : 16) : 0);
+    }
+  };
+
+  const uint32_t w_base = smem_addr(s_w);
+  // ldmatrix.x4 row of lane: matrices (n8 tile 2jj, k lo / hi), (2jj + 1, lo / hi)
+  const uint32_t b_lane =
+      w_base + (((lane >> 4) * 8 + (lane & 7)) * IC_KP + ((lane >> 3) & 1) * 8) * 2;
+  const int n8 = (Cout - co0 + 7) / 8 < 8 ? (Cout - co0 + 7) / 8 : 8;  // live n8 tiles
+
+#pragma unroll
+  for (int k = 0; k < IC_STAGES - 1; ++k) {
+    if (k < my_items) load_tile(k);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int k = 0; k < my_items; ++k) {
+    if (k + IC_STAGES - 1 < my_items) load_tile(k + IC_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<IC_STAGES - 1>();
+    __syncthreads();  // tile k is in (and, at k = 0, the weights)
+    int n, ty, tx;
+    item_tile(k, n, ty, tx);
+    const uint32_t slot = smem_addr(s_in + (k % IC_STAGES) * IC_IN_BYTES);
+    // the warp's halo rows 2 warp .. 2 warp + 3: where this lane's words of
+    // each run start in its slot row, and whether the row lies in the image
+    uint32_t rowp[4];
+    bool row_ok[4];
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int r = 2 * warp + rr, gy = ty * 8 - 1 + r;
+      row_ok[rr] = gy >= 0 && gy < H;
+      rowp[rr] = slot + r * IC_ROW + (int)(run_start(n, ty, tx, r) & 15) + 4 * t + g * pix_bytes;
+    }
+    // pixel g + 8 h + dx - 1 of the tile row inside the image, for h, dx
+    bool col_ok[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int gx = tx * 16 + g + 8 * h + dx - 1;
+        col_ok[h][dx] = 2 * t < Cin && gx >= 0 && gx < W;
+      }
+    // the 32-bit word of channels 2t, 2t + 1 of tile pixel (row i, column
+    // g + 8 h) at tap `tap` (zero outside the image and past the ninth tap)
+    auto a_word = [&](int i, int tap, int h) -> uint32_t {
+      if (tap >= 9) return 0u;
+      const int dy = tap / 3, dx = tap % 3;
+      if (!row_ok[i + dy] || !col_ok[h][dx]) return 0u;
+      return lds32_shared(rowp[i + dy] + (8 * h + dx) * pix_bytes);
+    };
+
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        a[i][0] = a_word(i, 2 * s, 0), a[i][1] = a_word(i, 2 * s, 1);
+        a[i][2] = a_word(i, 2 * s + 1, 0), a[i][3] = a_word(i, 2 * s + 1, 1);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {  // n8 tiles 2 jj and 2 jj + 1
+        if (2 * jj >= n8) break;
+        uint32_t r4[4];
+        ldmatrix_x4(r4, b_lane + (16 * jj * IC_KP + 16 * s) * 2);
+        const uint32_t b0[2] = {r4[0], r4[1]}, b1[2] = {r4[2], r4[3]};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_k16<E>(acc[i][2 * jj], a[i], b0);
+          if (2 * jj + 1 < n8) mma_k16<E>(acc[i][2 * jj + 1], a[i], b1);
+        }
+      }
+    }
+
+    // epilogue: into output tile k % 2, once the store that last read it has
+    unsigned char* out = ic_smem + (k & 1) * IC_OUT;
+    if (tid == 0) bulk_wait_read<1>();
+    __syncthreads();  // that store has read the tile; every warp is done with slot k
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int gy = ty * 8 + 2 * warp + i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (2 * warp + i) * 16 + g + 8 * h, gx = tx * 16 + g + 8 * h;  // m % 8 == g
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          const int co = co0 + 8 * j + 2 * t;
+          if (EPI != EPI_NONE && gy < H && gx < W && co < Cout) {  // Cout is even
+            const size_t off = (((size_t)n * H + gy) * W + gx) * Cout + co;
+            v0 = epilogue<EPI, E>(v0, epi, n, Cout, co, off);
+            v1 = epilogue<EPI, E>(v1, epi, n, Cout, co + 1, off + 1);
+          }
+          *reinterpret_cast<uint32_t*>(out + m * 128 + ((j ^ g) << 4) + 4 * t) = pack2<E>(v0, v1);
+        }
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      tma_store_4d(&tmap_y, smem_addr(out), co0, tx * 16, ty * 8, n);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+}
+
+template <class E, int EPI>
+cudaError_t launch_in_conv16(const E* x, const E* w, E* y, int N, int H, int W, int Cin, int Cout,
+                             const EpiArgs& epi, cudaStream_t stream) {
+  auto kernel = in_conv16_kernel<E, EPI>;
+  static const LaunchInfo info = query_launch(kernel, IC_NT, IC_SMEM);  // once per kernel
+  // 16-byte words of x (the wrapper checks this first); y from the wrapper
+  if ((reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(y) & 15))
+    return cudaErrorMisalignedAddress;
+  if (Cin > 8 || Cin % 2 || Cout % 8) return cudaErrorInvalidValue;
+  ConvGrid grid;
+  unsigned blocks;
+  cudaError_t err = plan_conv<InConvTile>(info, N, H, W, Cin, Cout, grid, blocks);
+  if (err != cudaSuccess || blocks == 0) return err;
+  CUtensorMap ty;
+  err = encode_map<E, 4>(&ty, y, {(cuuint64_t)Cout, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N},
+                         {WG_BN, 16, 8, 1});
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, IC_NT, IC_SMEM, stream>>>(x, w, ty, N, H, W, Cin, Cout, grid, epi);
+  return cudaGetLastError();
+}
+
 // KS x KS conv with 16-bit operands: x (N, H, W, Cin) and the weight (KS *
 // KS, Cout, Cin) in E, y in E or float32 (OUT_F32), each by conv16_path:
-// the direct head kernel for 3x3 convs to at most 8 channels, the wgmma
-// core for Cin % 16 == 0 and Cout % 64 == 0, else the mma.sync core.
+// the direct head kernel for 3x3 convs to at most 8 channels, the in-conv
+// kernel for 3x3 convs from at most 8 channels (even) to a multiple of 8,
+// the wgmma core for Cin % 16 == 0 and Cout % 64 == 0, else the mma.sync
+// core.
 template <int KS, class E, bool OUT_F32, int EPI>
 cudaError_t launch_conv_h(const E* x, const E* w, void* y, int N, int H, int W, int Cin, int Cout,
                           const EpiArgs& epi, cudaStream_t stream) {
-  using TO = typename std::conditional<OUT_F32, float, E>::type;
   switch (conv16_path(KS, Cin, Cout)) {
     case PATH_HEAD:
-      if constexpr (KS == 3)
-        return launch_conv3x3_head<E, E, TO, true, IN_NONE, EPI>(x, w, static_cast<TO*>(y), N, H,
-                                                                 W, Cin, Cout, epi, stream);
+      if constexpr (KS == 3 && !OUT_F32)
+        return launch_conv3x3_head<E, IN_NONE, EPI>(x, w, static_cast<E*>(y), N, H, W, Cin, Cout,
+                                                    epi, stream);
+      return cudaErrorInvalidValue;
+    case PATH_IN_CONV:
+      if constexpr (KS == 3 && !OUT_F32)
+        return launch_in_conv16<E, EPI>(x, w, static_cast<E*>(y), N, H, W, Cin, Cout, epi,
+                                        stream);
       return cudaErrorInvalidValue;
     case PATH_WGMMA_RESIDENT:
       return launch_conv_wgmma<WgTile<KS, false>, E, OUT_F32, EPI>(x, w, y, N, H, W, Cin, Cout,
@@ -523,9 +795,6 @@ cudaError_t launch_conv_h(const E* x, const E* w, void* y, int N, int H, int W, 
                                                                    epi, stream);
       return cudaErrorInvalidValue;
     default:
-      if (Cin <= 8)
-        return launch_conv_h_tc<InTileH<KS>, E, OUT_F32, EPI>(x, w, y, N, H, W, Cin, Cout, epi,
-                                                             stream);
       return launch_conv_h_tc<WideTileH<KS>, E, OUT_F32, EPI>(x, w, y, N, H, W, Cin, Cout, epi,
                                                              stream);
   }

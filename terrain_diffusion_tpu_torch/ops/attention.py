@@ -26,13 +26,13 @@ Counterpart of ``terrain_diffusion_tpu.ops.pallas_attention``:
 qkv is (N, H, W, 3C) with channels laid out (head, channel, qkv), the qkv
 index fastest; the result is (N, H, W, C), before the output projection, in
 qkv's type.  A bfloat16 or float16 qkv (the qkv conv's output in a 16-bit
-U-Net) goes to the tensor-core kernel's 16-bit form, which widens each value
-to float32 as it fills its tiles, runs the pixel norm, softmax and both
-products as for float32, and rounds the output once: the Pallas kernel's
-rounding points (``_attn_kernel`` widens ``qkv``, writes ``qkv.dtype``).
-Bound, as in float32, by its bytes at the midblock's shapes, now 2 bytes a
-value.  Only the tensor-core widths (16, 32, 64) take 16 bits; a 16-bit qkv
-at any other width, and any other type, raises TypeError.
+U-Net) goes to the 16-bit form of the kernel its width takes, which widens
+each value to float32 as it stages it, runs the pixel norm, softmax and
+both products as for float32, and rounds the output once: the Pallas
+kernel's rounding points (``_attn_kernel`` widens ``qkv``, writes
+``qkv.dtype``).  Bound, as in float32, by its bytes at the midblock's
+shapes, now 2 bytes a value.  Every width takes 16 bits, as in JAX; any
+other type raises TypeError.
 """
 from __future__ import annotations
 
@@ -115,9 +115,6 @@ def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
         raise ValueError("qkv must be 16-byte aligned: the kernel copies 16-byte words")
     c = c3 // 3
     ch = c // num_heads
-    if dt != torch.float32 and attention_path(ch) != "tensor_cores":
-        raise TypeError(f"a {dt} qkv takes the kernel only at {TENSOR_CORE_CHANNELS} "
-                        f"channels a head, got {ch}")
     out = torch.empty((n, h, w, c), device=qkv.device, dtype=dt)
     check_rc(load().tdt_pixelnorm_attention(qkv.data_ptr(), out.data_ptr(), n, h * w, num_heads,
                                             ch, float(eps), DTYPE_CODES[dt], stream(qkv.device)),

@@ -9,8 +9,8 @@ plain PyTorch versions.
 
 Both run their 3x3 convs and the block's 1x1 projection on a tensor-core
 conv core; a conv to at most 8 channels (the 64 -> 1 head) runs a direct
-conv on the CUDA cores.  The activations' type picks the form, as
-``x.dtype`` does for the Pallas kernels:
+conv on the CUDA cores that reads each input row once.  The activations'
+type picks the form, as ``x.dtype`` does for the Pallas kernels:
 
 - float32: implicit GEMM in 3xTF32 on ``mma.sync`` (``csrc/conv3x3.cuh``),
   float32 in and out (the JAX kernels' Precision.HIGHEST dots).  Bound on
@@ -18,7 +18,10 @@ conv on the CUDA cores.  The activations' type picks the form, as
 - bfloat16 or float16: one pass of 16-bit products with float32 sums (the
   JAX kernels' native MXU passes), on the ``wgmma`` core fed by TMA
   (``csrc/conv_wgmma.cuh``) for ``Cin % 16 == 0`` and ``Cout % 64 == 0``,
-  else on a 16-bit ``mma.sync`` core; ``conv16_path`` says which.  The
+  the in-conv kernel (one K = 80 GEMM on ``mma.sync``, its output tile
+  written by one TMA store) for a 3x3 conv from at most 8 channels (even)
+  to a multiple of 8, else a 16-bit ``mma.sync`` core; ``conv16_path``
+  says which.  The
   weights (float32 parameters) are scaled in float32 and then rounded; the
   block rounds where ``pallas_block.py::_block_body`` rounds: the gather,
   pixel norm and residual ``xres`` stay float32, the projection's operand,
@@ -58,20 +61,23 @@ INV_SILU_GAIN = 1.0 / 0.596  # mp_silu divisor, folded into the conv weights
 # ---------------------------------------------------------------------------
 
 # csrc/conv_wgmma.cuh: Conv16Path codes, and the rule's constants
-CONV16_PATHS = ("head", "mma_sync", "wgmma_resident", "wgmma_streamed")
+CONV16_PATHS = ("head", "mma_sync", "wgmma_resident", "wgmma_streamed", "in_conv")
 WGMMA_CK, WGMMA_BN, WGMMA_RESIDENT_CHUNK_TAPS = 64, 64, 18
 
 
 def conv16_path(ks: int, cin: int, cout: int) -> str:
     """The core a 16-bit ``ks`` x ``ks`` conv from ``cin`` to ``cout``
     channels runs on the card (the C chooser's rule, ``tdt_conv16_path``):
-    "head" (3x3 to at most 8 channels, CUDA cores), "wgmma_resident" /
+    "head" (3x3 to at most 8 channels, CUDA cores), "in_conv" (3x3 from at
+    most 8 channels, an even number, to a multiple of 8), "wgmma_resident" /
     "wgmma_streamed" (the wgmma core, for cin % 16 == 0 and cout % 64 == 0,
     with the weights kept in shared memory where ks * ks * ceil(cin / 64) <=
     18, else streamed with the input; a 1x1 conv streams never), else
     "mma_sync"."""
     if ks == 3 and cout <= 8:
         return "head"
+    if ks == 3 and cin <= 8 and cin % 2 == 0 and cout % 8 == 0:
+        return "in_conv"
     if cin % 16 or cout % WGMMA_BN:
         return "mma_sync"
     if ks * ks * -(-cin // WGMMA_CK) <= WGMMA_RESIDENT_CHUNK_TAPS:
@@ -87,11 +93,13 @@ def library_conv16_path(ks: int, cin: int, cout: int) -> str:
 
 def _check_tma(name: str, t: torch.Tensor, ks: int, cin: int, cout: int):
     """The wgmma core reads its 16-bit input and weight through TMA, which
-    takes 16-byte aligned rows: raise ValueError for a tensor off that
-    alignment (cin % 16 == 0 makes every row a multiple of 16 bytes)."""
-    if conv16_path(ks, cin, cout).startswith("wgmma") and t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned: the wgmma conv core reads it "
-                         "through TMA")
+    takes 16-byte aligned rows, and the in-conv kernel copies its input as
+    16-byte words: raise ValueError for an input off that alignment (cin %
+    16 == 0 makes every wgmma row a multiple of 16 bytes)."""
+    path = conv16_path(ks, cin, cout)
+    if t.data_ptr() % 16 and (path.startswith("wgmma") or path == "in_conv"):
+        raise ValueError(f"{name} must be 16-byte aligned: the {path} conv core reads it "
+                         "as 16-byte words")
 
 
 # ---------------------------------------------------------------------------

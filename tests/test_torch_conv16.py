@@ -161,7 +161,12 @@ def test_every_decoder_width_takes_the_wgmma_core(ks):
 
 
 @pytest.mark.parametrize("ks,cin,cout,path", [
-    (3, 6, 64, "mma_sync"),     # the decoder's in conv: 6 channels
+    (3, 6, 64, "in_conv"),      # the decoder's in conv: 6 channels
+    (3, 6, 32, "in_conv"),      # the 32-channel guide's in conv
+    (3, 8, 40, "in_conv"),      # Cout a multiple of 8, off 64
+    (3, 5, 64, "mma_sync"),     # odd Cin: 2-channel words would straddle pixels
+    (3, 6, 36, "mma_sync"),     # Cout off 8: the TMA store's rows
+    (1, 6, 64, "mma_sync"),     # a 1x1 conv of 6 channels
     (3, 64, 1, "head"),         # the 64 -> 1 head
     (3, 256, 8, "head"),
     (3, 33, 64, "mma_sync"),    # Cin off 16

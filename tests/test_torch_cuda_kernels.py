@@ -20,6 +20,13 @@ The 16-bit conv core on wgmma (``test_wgmma_core*``) is driven through the
 block's C entry points with each epilogue, at every block width pair the
 decoder sends, against the same products in float32 on the card.
 
+The narrow head (``test_head_kernel*``) runs in float32, bf16 and fp16 at
+Cin 32 and 64, Cout 1, 3 and 8, on maps that are no multiple of its strips
+or runs, at batch 1, 2 and 16, and in the block's Cout <= 8 forms.  The
+16-bit in conv (``test_in_conv16*``) runs 6 -> 32 and 6 -> 64 (and the other
+shapes its rule takes) on the same maps and batches, and with the block's
+epilogues through the C entry points.
+
 The 16-bit forms (``*_16bit`` tests) take bf16 or fp16 activations:
 against the plain version on the same inputs the bar is 1e-2 for bf16 and
 2.5e-3 for fp16 (about 2.5 steps of the type at the largest value: both
@@ -266,7 +273,9 @@ def test_conv3x3_kernel_16bit(dev, half, n, h, w, cin, cout):
 @pytest.mark.parametrize("shape,heads", [
     ((2, 8, 8, 192), 1), ((1, 16, 16, 384), 2), ((3, 8, 8, 2304), 12),
     ((64, 8, 8, 2304), 12), ((1, 32, 64, 576), 3), ((2, 5, 13, 96), 2),
-    ((2, 9, 15, 192), 2)])
+    ((2, 9, 15, 192), 2),
+    # the CUDA-core kernel's 16-bit form: ch = 8 (HW = 65), ch = 400
+    ((2, 5, 13, 120), 5), ((1, 8, 8, 1200), 1)])
 @HALF
 def test_attention_kernel_16bit(dev, half, shape, heads):
     g = torch.Generator().manual_seed(5)
@@ -361,7 +370,7 @@ def test_conv16_paths(dev):
     """The built library's 16-bit conv chooser equals ``conv16_path``."""
     for ks in (1, 3):
         for cin in range(1, 600):
-            for cout in (1, 3, 8, 9, 40, 63, 64, 96, 128, 192, 256, 320, 512):
+            for cout in (1, 3, 8, 9, 16, 32, 36, 40, 63, 64, 96, 128, 192, 256, 320, 512):
                 assert fb.library_conv16_path(ks, cin, cout) == fb.conv16_path(ks, cin, cout), \
                     (ks, cin, cout)
 
@@ -384,11 +393,118 @@ def test_wgmma_core_rejects_a_misaligned_input(dev, half):
     assert (fb.conv3x3.launches, fb.fused_block.launches) == before
 
 
+HEAD_MAPS = [(1, 37, 53), (2, 19, 130), (16, 9, 21)]  # ragged; batch 1, 2, 16
+ALL_TYPES = pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16],
+                                    ids=["f32", "bf16", "fp16"])
+
+
+def _check_any(got, plain, exact, dt):
+    """float32: within TOL of the plain version and of the float64 oracle;
+    16-bit: ``_check16``."""
+    if dt == torch.float32:
+        assert got.dtype == torch.float32
+        assert _rel(got, plain) < TOL
+        assert _rel(got.double().cpu(), exact) < TOL
+    else:
+        _check16(got, plain, exact, dt)
+
+
+@pytest.mark.parametrize("n,h,w", HEAD_MAPS)
+@pytest.mark.parametrize("cin,cout", [(64, 1), (32, 1), (64, 3), (32, 8), (64, 8)])
+@ALL_TYPES
+def test_head_kernel(dev, dt, cin, cout, n, h, w):
+    """The narrow head against the plain version and the float64 oracle."""
+    assert fb.conv16_path(3, cin, cout) == "head"
+    g = torch.Generator().manual_seed(8)
+    x = _rand(g, (n, h, w, cin), dev).to(dt)
+    wt = _rand(g, (3, 3, cin, cout), dev, (9 * cin) ** -0.5)
+    before = fb.conv3x3.launches
+    got = fb.conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert fb.conv3x3.launches == before + 1
+    x64 = x.double().cpu().permute(0, 3, 1, 2)
+    exact = torch.nn.functional.conv2d(x64, wt.double().cpu().permute(3, 2, 0, 1),
+                                       padding=1).permute(0, 2, 3, 1)
+    _check_any(got, fb.conv3x3_reference(x, wt), exact, dt)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,mode,proj", [
+    (2, 21, 37, 32, 8, "enc", True),    # enc: projection, pixel norm, Cmid = Cout = 8
+    (1, 19, 27, 8, 8, "dec", False),    # dec: the residual is x itself
+    (16, 9, 17, 32, 3, "dec", True),    # batch 16, Cout 3
+    (1, 13, 50, 64, 1, "enc", True),    # Cout 1: whole-word stores
+])
+@ALL_TYPES
+def test_head_kernel_block_forms(dev, dt, n, h, w, cin, cout, mode, proj):
+    """The block's convs to at most 8 channels run the head with conv0's
+    activation (float32) and gain + silu and conv1's residual mix + clip."""
+    g = torch.Generator().manual_seed(9)
+    c_main = cout if (mode == "enc" and proj) else cin
+    x = _rand(g, (n, h, w, cin), dev).to(dt)
+    w0 = _rand(g, (3, 3, c_main, cout), dev, (9 * c_main) ** -0.5)
+    w1 = _rand(g, (3, 3, cout, cout), dev, (9 * cout) ** -0.5)
+    wskip = _rand(g, (cin, cout), dev, cin ** -0.5) if proj else None
+    c = _rand(g, (n, cout), dev, 0.3) + 1.0
+    kw = dict(mode=mode, pixel_norm=(mode == "enc"), res_balance=0.3, clip_act=2.0)
+    got = fb.fused_block(x, w0, w1, c, wskip, **kw)
+    torch.cuda.synchronize()
+    exact = fb.fused_block_reference(*(t.double().cpu() if t is not None else None
+                                       for t in (x, w0, w1, c, wskip)), **kw)
+    _check_any(got, fb.fused_block_reference(x, w0, w1, c, wskip, **kw), exact, dt)
+
+
+@pytest.mark.parametrize("n,h,w", HEAD_MAPS + [(1, 64, 64)])
+@pytest.mark.parametrize("cin,cout", [(6, 64), (6, 32), (8, 64), (4, 16), (6, 40), (6, 96),
+                                      (2, 128)])
+@HALF
+def test_in_conv16_kernel(dev, half, cin, cout, n, h, w):
+    """The 16-bit in conv: the decoder's 6 -> 64 and the guide's 6 -> 32,
+    Cin 2 to 8, Cout off 64 (one slice clipped by the TMA store) and over 64
+    (two slices), on ragged maps at batch 1, 2 and 16."""
+    assert fb.conv16_path(3, cin, cout) == "in_conv"
+    g = torch.Generator().manual_seed(10)
+    x = _rand(g, (n, h, w, cin), dev).to(half)
+    wt = _rand(g, (3, 3, cin, cout), dev, (9 * cin) ** -0.5)
+    before = fb.conv3x3.launches
+    got = fb.conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert fb.conv3x3.launches == before + 1
+    x64 = x.double().cpu().permute(0, 3, 1, 2)
+    exact = torch.nn.functional.conv2d(x64, wt.double().cpu().permute(3, 2, 0, 1),
+                                       padding=1).permute(0, 2, 3, 1)
+    _check16(got, fb.conv3x3_reference(x, wt), exact, half)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 21, 35, 6, 64), (2, 13, 50, 8, 32),
+                                            (16, 9, 17, 6, 64)])
+@HALF
+def test_in_conv16_epilogues(dev, half, n, h, w, cin, cout):
+    """conv0's gain + silu and conv1's residual mix + clip (float32 and
+    16-bit residual) on the in-conv kernel, through the block's C entry
+    points (the 1x1 projection of 6 channels takes the mma.sync core)."""
+    assert fb.conv16_path(3, cin, cout) == "in_conv"
+    _core_case(dev, half, n, h, w, cin, cout, seed=11)
+
+
+@HALF
+def test_in_conv16_rejects_a_misaligned_input(dev, half):
+    """The in conv copies its input as 16-byte words: a 16-bit input 2
+    bytes off raises ValueError in the wrapper before any launch."""
+    buf = torch.zeros(1 * 16 * 16 * 6 + 1, device=dev, dtype=half)
+    x = buf[1:].view(1, 16, 16, 6)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    before = fb.conv3x3.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fb.conv3x3(x, torch.zeros((3, 3, 6, 64), device=dev))
+    assert fb.conv3x3.launches == before
+
+
 def test_kernels_route_by_dtype(dev):
     """float32 goes to the float32 kernels and bf16 / fp16 to the 16-bit
     ones, each counted under its type and answering in its input's type; a
-    mixed pair, float64, and a 16-bit qkv at a width off the tensor-core path
-    raise TypeError before any launch."""
+    mixed pair and float64 raise TypeError before any launch; a 16-bit qkv
+    at a width off the tensor-core path (the "wide head 8x8 1x400" shape)
+    runs the CUDA-core kernel's 16-bit form and matches the plain version."""
     from terrain_diffusion_tpu_torch.ops import cuda_lib
 
     g = torch.Generator().manual_seed(6)
@@ -410,10 +526,14 @@ def test_kernels_route_by_dtype(dev):
         fb.conv3x3(x.double(), w)
     with pytest.raises(TypeError):
         fb.fused_block(x.double(), w, w, None, mode="dec", pixel_norm=False)
-    with pytest.raises(TypeError):  # ch = 400 runs the float32 CUDA-core kernel only
-        attention.fused_pixelnorm_attention(_rand(g, (1, 8, 8, 1200), dev).bfloat16(), 1)
-    for fn in (fb.conv3x3, fb.fused_block, attention.fused_pixelnorm_attention):
-        assert fn.launches == 3
+    wide = _rand(g, (1, 8, 8, 1200), dev, 3.0)
+    for half in (torch.bfloat16, torch.float16):  # ch = 400: the CUDA-core kernel
+        got = attention.fused_pixelnorm_attention(wide.to(half), 1)
+        want = attention.pixelnorm_attention_reference(wide.to(half), 1)
+        assert got.dtype == want.dtype == half
+        assert _rel(got.float(), want.float()) < TOL16[half]
+    assert (fb.conv3x3.launches, fb.fused_block.launches) == (3, 3)
+    assert attention.fused_pixelnorm_attention.launches == 5
 
 
 def test_wrappers_refuse_autograd_on_the_card(dev):
