@@ -108,16 +108,40 @@ Phases, each of which exits non-zero on failure:
    within 1e-4 relative.  The kernel phase holds the training shapes too:
    the 64- and 32-channel top-level blocks and the in conv and head at
    128x128 b16.
+9. evaluation (``terrain_diffusion_tpu_torch.evaluation``, the VAE): a VAE
+   at ``autoencoder_x8.cfg``'s full width (seeded random weights) encodes
+   and decodes 512x512 b2 in float32 on the card and on the CPU, bar 1e-4
+   relative on the means, logvars and reconstruction, with the launches per
+   encode (the 8 blocks of at least 128 x 128 pixels + the 2 -> 64 in conv)
+   and decode (12 blocks) checked, and bf16's relative RMSE against float32
+   reported; the samplers card vs CPU with one threefry key, bar 1e-4:
+   ``sample_decoder_consistency_tiled`` on the 64-3 decoder over a 96x96
+   latent canvas (4 tiles: 104 block + 8 conv launches),
+   ``sample_base_consistency`` on the 192-3 base at b4 (2 attention
+   launches), ``sample_autoencoder_tiled`` over 768x768 (4 tiles); FID / KID
+   (terrain features) between two VAE draws, finite; the latency CLI
+   (``evaluation.latency.main``, its default bf16, 3 runs) on phase 6's world
+   directory and ``run_http_benchmark`` at 1 and 4 clients, 2 requests each
+   (every p50 > 0, peak device bytes > 0, every answer of full size);
+   ``DiffusionTrainer.evaluate_full`` on ``diffusion_192-3.cfg`` with KID (4
+   images at b2, decoded by the world's decoder), finite.  The kernel phase
+   holds the VAE's block shapes that no other row has and its 2 -> 64 in
+   conv, in float32 and bf16 (``vae ...`` rows; the blocks take no
+   embedding).
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
 forwards, conv launches = 2 x decoder forwards, every one in the phase's
 type.  The training phase zeroes them before each run.
 
+The evaluation phase zeroes them before each of its card runs and sums
+them by kernel and type.
+
 The last lines are a JSON kernel report (a row per kernel and type:
 launches from the Minecraft phase in float32 and bf16 and from the fp16
-forwards in fp16, ``training_launches`` from the consistency run), the
-card's name and power limit, and
+forwards in fp16, ``training_launches`` from the consistency run,
+``evaluation_launches`` from the evaluation phase, which must be positive
+for the three float32 kernels), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 import configparser
@@ -163,6 +187,23 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, case reported in the JSO
 }
 BF16, FP16 = " bf16", " fp16"  # suffixes of the 16-bit rows' kernel names
 LAUNCH_ROW_CASES = ("enc 512x512 64->64 b2", "dec 512x512 proj 192->64 b2")
+# the VAE's block shapes (autoencoder_x8.cfg at 512x512 b2) that no decoder
+# or training row has: (row name, (map, Cin, Cout, mode), options, launches)
+VAE_BLOCK_CASES = [
+    ("vae enc 256x256 64->64 b2", (256, 64, 64, "enc"), {}, "1/VAE encode"),
+    ("vae enc 256x256 128->128 b2", (256, 128, 128, "enc"), {}, "1/VAE encode"),
+    ("vae enc 128x128 128->128 b2", (128, 128, 128, "enc"), {}, "1/VAE encode"),
+    ("vae enc 128x128 proj 128->256 b2", (128, 128, 256, "enc"), {"proj": True}, "1/VAE encode"),
+    ("vae enc 128x128 256->256 b2", (128, 256, 256, "enc"), {}, "1/VAE encode"),
+    ("vae dec 128x128 256->256 b2", (128, 256, 256, "dec"), {}, "3/VAE decode"),
+    ("vae dec 256x256 pre-up 256 b2", (128, 256, 256, "dec"), {"up": 2}, "1/VAE decode"),
+    ("vae dec 256x256 proj 256->128 b2", (256, 256, 128, "dec"), {"proj": True},
+     "1/VAE decode"),
+    ("vae dec 256x256 128->128 b2", (256, 128, 128, "dec"), {}, "2/VAE decode"),
+    ("vae dec 512x512 pre-up 128 b2", (256, 128, 128, "dec"), {"up": 2}, "1/VAE decode"),
+    ("vae dec 512x512 proj 128->64 b2", (512, 128, 64, "dec"), {"proj": True}, "1/VAE decode"),
+    ("vae dec 512x512 64->64 b2", (512, 64, 64, "dec"), {}, "2/VAE decode"),
+]
 
 
 def fail(msg: str):
@@ -334,13 +375,13 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
         """The arguments in float64 on the card: the plain version's oracle."""
         return [t.double() if t is not None else None for t in args]
 
-    def block_args(n, hs, cx, cout, mode, x2=False, proj=False, up=1):
+    def block_args(n, hs, cx, cout, mode, x2=False, proj=False, up=1, emb=True):
         cg = 2 * cx if x2 else cx
         c_main = cout if (mode == "enc" and proj) else cg
         args = (rand(n, hs, hs, cx),
                 rand(3, 3, c_main, cout, scale=(9 * c_main) ** -0.5),
                 rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5),
-                rand(n, cout, scale=0.3) + 1.0,
+                rand(n, cout, scale=0.3) + 1.0 if emb else None,
                 rand(cg, cout, scale=cg ** -0.5) if proj else None,
                 rand(n, hs, hs, cx) if x2 else None)
         kw = dict(mode=mode, pixel_norm=(mode == "enc"), res_balance=0.3,
@@ -465,6 +506,14 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
     # a 16-bit qkv off the tensor-core widths: the CUDA-core kernel's 16-bit form
     cases += [("attention" + sfx, "wide head 8x8 1x400 b1", attn_case((1, 8, 8, 1200), 1, dtype=dt))
               for sfx, dt in ((BF16, bf16), (FP16, fp16))]
+    # the VAE (autoencoder_x8.cfg, 512x512 b2) at the shapes no row above has:
+    # its blocks take no embedding (c = None)
+    for sfx, dt in (("", torch.float32), (BF16, bf16)):
+        cases += [("fused_block" + sfx, name, dict(block_case(2, *a, dtype=dt, emb=False, **k),
+                                                    per_forward=per))
+                  for name, a, k, per in VAE_BLOCK_CASES]
+        cases += [("conv3x3" + sfx, "vae in conv 512x512 2->64 b2",
+                   dict(conv_case(2, 2, 64, dtype=dt), per_forward="1/VAE encode"))]
     rows = []
     for kernel, name, case in cases:
         suffix = kernel[-len(BF16):] if kernel[-len(BF16):] in (BF16, FP16) else ""
@@ -500,7 +549,8 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
               f"{flops / 1e9:.3f} GFLOP {n_bytes / 1e6:.1f} MB bound={b_ms:.4f} ms ({b_by}, "
               f"{UNITS[case['unit']][2]}) share={b_ms / ms:.1%} (device {b_ms / device_ms:.1%}) "
               f"f32-cuda-core={f32_ms:.4f} ms ({f32_ms / ms:.1%}) "
-              f"launches/forward={LAUNCHES_PER_FORWARD[base_kernel]}", flush=True)
+              f"launches/forward={case.get('per_forward', LAUNCHES_PER_FORWARD[base_kernel])}",
+              flush=True)
         check(got.dtype == want.dtype, f"{name}: kernel type {got.dtype}, plain {want.dtype}")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         tol = KERNEL_TOL16[suffix] if half else KERNEL_TOL
@@ -1243,6 +1293,7 @@ class MemoryDataset:
         return self.n
 
     def __getitem__(self, i):
+        i %= self.n  # the evaluation draws indices up to 2 ** 31
         if self.kind == "decoder":
             return {"image": self.image[i], "cond_img": self.cond[i], "cond_inputs": [],
                     "path": f"memory/{i}"}
@@ -1522,6 +1573,242 @@ def training_phase(torch, np, cuda_lib, fb, attn, dev, work_dir):
     card_vs_cpu_steps(torch, np, cuda_lib, fb, teacher, guide_cpu)
     return want, summary
 
+# ---------------------------------------------------------------------------
+# evaluation phase
+# ---------------------------------------------------------------------------
+
+VAE_CFG = "configs/autoencoder/autoencoder_x8.cfg"
+EVAL_TOL = 1e-4  # card vs CPU, max|diff| / max|ref|, float32 with TF32 off
+
+
+class EvalLaunches:
+    """Kernel launches of the evaluation path's card runs: ``run(fn)`` zeroes
+    the counts, runs fn, reads the counts by kernel and type, and adds them
+    to ``total`` (the JSON line's ``evaluation_launches``)."""
+
+    def __init__(self, torch, cuda_lib, fb, attn):
+        self.torch, self.cuda_lib = torch, cuda_lib
+        self.fns = {"fused_block": fb.fused_block, "conv3x3": fb.conv3x3,
+                    "attention": attn.fused_pixelnorm_attention}
+        self.total = {}
+
+    def run(self, fn):
+        self.cuda_lib.reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in self.fns.items()}
+        for k, f in self.fns.items():
+            for dt, n in f.launches_by_dtype.items():
+                self.total[(k, dt)] = self.total.get((k, dt), 0) + n
+        return out, counts
+
+
+def vae_launches(vae) -> tuple:
+    """Kernel launches of one encode and one decode at the config's image
+    size: the blocks whose output map has at least 128 x 128 pixels, and the
+    encoder's in conv (the decoder's head stays an MPConv)."""
+    from terrain_diffusion_tpu_torch.nn.layers import FUSED_MIN_PIXELS
+
+    size, levels = vae.config.image_size, len(vae.config.model_channel_mults)
+
+    def res(name):
+        if name.startswith("mid"):
+            return size // 2 ** (levels - 1)
+        if name.startswith("up"):
+            return size // 2 ** int(name[2:])
+        return int(name.split("x")[0])
+
+    n_enc = sum(1 for name, kind, *_ in vae.encoder.enc_plan
+                if kind == "block" and res(name) ** 2 >= FUSED_MIN_PIXELS)
+    n_dec = sum(1 for name, *_ in vae.decoder_plan if res(name) ** 2 >= FUSED_MIN_PIXELS)
+    return ({"fused_block": n_enc, "conv3x3": int(size * size >= FUSED_MIN_PIXELS),
+             "attention": 0}, {"fused_block": n_dec, "conv3x3": 0, "attention": 0})
+
+
+def vae_phase(torch, np, vae, dev, launches, card):
+    """The VAE at autoencoder_x8.cfg's full width, 512x512 b2: encode on the
+    card (kernels) and on the CPU (plain), decode the CPU's means on both;
+    the launches per encode and decode; bf16 against float32, reported."""
+    g = torch.Generator().manual_seed(SEED + 10)
+    x = torch.randn((2, 512, 512, 1), generator=g)
+    want_enc, want_dec = vae_launches(vae)
+    cpu = copy.deepcopy(vae).cpu()
+    xd = x.to(dev)
+    with torch.no_grad():
+        (means, logvars), n_enc = launches.run(lambda: vae.preencode(xd))
+        t0 = time.perf_counter()
+        cmeans, clogvars = cpu.preencode(x)
+        rec, n_dec = launches.run(lambda: vae.decode(cmeans.to(dev)))
+        crec = cpu.decode(cmeans)
+        cpu_s = time.perf_counter() - t0
+        zd = cmeans.to(dev)
+        enc_ms = time_ms(lambda: vae.preencode(xd), iters=3)
+        dec_ms = time_ms(lambda: vae.decode(zd), iters=3)
+        bf = torch.bfloat16
+        (m16, _), n16 = launches.run(lambda: vae.preencode(xd, compute_dtype=bf))
+        rec16, n16d = launches.run(lambda: vae.decode(zd.to(bf)))
+        enc16_ms = time_ms(lambda: vae.preencode(xd, compute_dtype=bf), iters=3)
+        dec16_ms = time_ms(lambda: vae.decode(zd.to(bf)), iters=3)
+    errs = {"means": rel_err(means.cpu(), cmeans), "logvars": rel_err(logvars.cpu(), clogvars),
+            "reconstruction": rel_err(rec.cpu(), crec)}
+    print(f"[eval vae] {card}: autoencoder_x8 512x512 b2 float32 card vs CPU "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (CPU {cpu_s:.1f} s); encode {enc_ms:.2f} ms, decode {dec_ms:.2f} ms; launches "
+          f"per encode {n_enc}, per decode {n_dec}", flush=True)
+    print(f"[eval vae] {card}: bf16 encode {enc16_ms:.2f} ms, decode {dec16_ms:.2f} ms; "
+          f"rel RMSE against float32: means {rrmse(m16.float(), means):.3e}, reconstruction "
+          f"{rrmse(rec16.float(), rec):.3e}; launches per encode {n16}, per decode {n16d}",
+          flush=True)
+    for k, v in errs.items():
+        check(v < EVAL_TOL, f"VAE {k} on the card disagree with the CPU: {v:.3e}")
+    check(bool(torch.isfinite(rec).all()) and rec.shape == (2, 512, 512, 1),
+          "VAE reconstruction non-finite or of the wrong shape")
+    check(n_enc == want_enc and n16 == want_enc,
+          f"VAE encode launched {n_enc} / bf16 {n16}, expected {want_enc}")
+    check(n_dec == want_dec and n16d == want_dec,
+          f"VAE decode launched {n_dec} / bf16 {n16d}, expected {want_dec}")
+    return {"encode_ms": enc_ms, "decode_ms": dec_ms, "encode_bf16_ms": enc16_ms,
+            "decode_bf16_ms": dec16_ms}
+
+
+def sampler_phase(torch, np, models, vae, dev, launches, card):
+    """The tiled samplers on the card and on the CPU with one threefry key:
+    the decoder's 1-step decode of a 96x96 latent canvas (four 512x512
+    tiles), the base consistency sampler (attention kernel), the VAE round
+    trip over a 768x768 canvas; then FID / KID between two VAE draws."""
+    from terrain_diffusion_tpu_torch.evaluation import metrics, samplers
+    from terrain_diffusion_tpu_torch.ops.noise_field import key_from_seed
+
+    rng = np.random.default_rng(SEED)
+    rng_lat = rng.standard_normal((1, 96, 96, 4)).astype(np.float32)
+    rng_cond = rng.standard_normal((4, 58)).astype(np.float32)
+    rng_img = rng.standard_normal((1, 768, 768, 1)).astype(np.float32)
+    decoder, base = models[2], models[1]
+    enc, dec = vae_launches(vae)
+    runs = [
+        ("decoder consistency 96x96 latents b1 (4 tiles)", decoder,
+         lambda m: samplers.sample_decoder_consistency_tiled(
+             m, rng_lat, key=key_from_seed(SEED % 2 ** 31)),
+         {"fused_block": 4 * 26, "conv3x3": 4 * 2, "attention": 0}),
+        ("base consistency 64x64 b4 (2 steps)", base,
+         lambda m: samplers.sample_base_consistency(
+             m, (4, 64, 64, 5), [rng_cond], key=key_from_seed(3), inter_t=1.1),
+         {"fused_block": 0, "conv3x3": 0, "attention": 2}),
+        ("VAE round trip 768x768 b1 (4 tiles)", vae,
+         lambda m: samplers.sample_autoencoder_tiled(m, rng_img, key=key_from_seed(4)),
+         {k: 4 * (enc[k] + dec[k]) for k in enc}),
+    ]
+    outs = {}
+    for name, model, fn, want in runs:
+        t0 = time.perf_counter()
+        got, n = launches.run(lambda: fn(model))
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = fn(copy.deepcopy(model).cpu())
+        cpu_s = time.perf_counter() - t0
+        err = rel_err(got.cpu(), ref)
+        print(f"[eval sampler] {card}: {name}: card {card_s * 1e3:.1f} ms, CPU {cpu_s:.1f} s, "
+              f"card vs CPU {err:.3e}, launches {n}", flush=True)
+        check(bool(torch.isfinite(got).all()) and err < EVAL_TOL,
+              f"{name}: card vs CPU {err:.3e}")
+        check(n == want, f"{name}: launches {n}, expected {want}")
+        outs[name] = got
+    other, _ = launches.run(lambda: samplers.sample_autoencoder_tiled(
+        vae, rng_img, key=key_from_seed(5)))
+
+    def patches(t):  # 144 64x64 heightmaps of a 768x768 canvas
+        t = t.cpu().numpy()[0, :, :, 0]
+        return t.reshape(12, 64, 12, 64).transpose(0, 2, 1, 3).reshape(144, 64, 64, 1)
+
+    t0 = time.perf_counter()
+    fid, kid_mean, kid_std = metrics.compute_fid_kid(patches(outs[runs[2][0]]), patches(other),
+                                                     device=dev)
+    print(f"[eval metrics] {card}: terrain-feature FID {fid:.4g}, KID {kid_mean:.4g} +- "
+          f"{kid_std:.3g} between two VAE draws (144 patches each), "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    check(all(math.isfinite(v) for v in (fid, kid_mean, kid_std)), "FID / KID not finite")
+
+
+def latency_phase(torch, dev, world_dir, launches, card):
+    """The latency CLI on the Minecraft phase's world (its default bf16,
+    3 runs), then requests/s through the coalesced HTTP stack at 1 and 4
+    clients."""
+    from terrain_diffusion_tpu_torch.evaluation import latency
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+
+    torch.cuda.reset_peak_memory_stats()  # the peak of this run, not of the phases before
+    out, n = launches.run(lambda: latency.main.main(
+        args=[world_dir, "--runs", "3", "--seed", str(SEED)], standalone_mode=False))
+    print(f"[eval latency] {card}: {json.dumps(out)}; launches {n}", flush=True)
+    mem = out["memory"]
+    check(out["ttft"]["p50"] > 0 and out["ttst"]["p50"] > 0, "latency: a p50 is not positive")
+    check(mem["available"] and mem["platform"] == "gpu" and mem["peak_bytes_in_use"] > 0,
+          f"latency: memory statistics {mem}")
+    world = WorldPipeline.from_pretrained(world_dir, seed=SEED, dtype="bf16",
+                                          latents_batch_size=[1, 2, 4, 8, 16], device=dev)
+    world.bind()
+    http, n = launches.run(lambda: latency.run_http_benchmark(
+        world, concurrency_levels=(1, 4), requests_per_client=2))
+    world.close()
+    print(f"[eval http] {card}: {json.dumps(http)}; launches {n}", flush=True)
+    check(set(http["levels"]) == {"1", "4"} and all(
+        lvl["requests"] == lvl["clients"] * 2 and lvl["requests_per_sec"] > 0
+        for lvl in http["levels"].values()), f"http benchmark: {http['levels']}")
+    return out, http
+
+
+def kid_phase(torch, dev, world_dir, launches, card):
+    """``DiffusionTrainer.evaluate_full`` on the base 192-3 config with KID:
+    4 images at batch 2 from the in-memory latents set, decoded to terrain
+    by the world's saved decoder (``kid_autoencoder_path``)."""
+    from terrain_diffusion_tpu_torch.training.registry import (apply_overrides, load_config,
+                                                               resolve)
+
+    register_memory_datasets()
+    config = load_config(os.path.join(ROOT, BASE_CFG))
+    for section in UNUSED_SECTIONS:
+        config.pop(section, None)
+    section = {"@dataset": "chip_smoke_latents", "crop_size": 64, "seed": SEED}
+    decoder_path = os.path.join(world_dir, "decoder_model")
+    apply_overrides(config, [
+        "train_dataset=" + json.dumps(section), "evaluation.kid_enabled=true",
+        "evaluation.kid_n_images=4", "evaluation.kid_batch_size=2",
+        "evaluation.validation_steps=4", f"evaluation.kid_autoencoder_path={json.dumps(decoder_path)}"])
+    resolved = resolve(config)
+    trainer = resolved["trainer"](config, resolved, device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    val = MemoryDataset("latents", 64, SEED + 11)
+    t0 = time.perf_counter()
+    out, n = launches.run(lambda: trainer.evaluate_full(state, val,
+                                                        torch.Generator().manual_seed(SEED)))
+    print(f"[eval kid] {card}: evaluate_full (diffusion_192-3, 4 images b2, "
+          f"{config['evaluation'].get('kid_scheduler_steps', 12)} DPM steps, decoded by "
+          f"the 64-3 decoder): {json.dumps(out)} in {time.perf_counter() - t0:.1f} s, "
+          f"launches {n}", flush=True)
+    check(math.isfinite(out["val_loss"]) and math.isfinite(out["val_kid_mean"])
+          and out["val_n_images"] == 4, f"evaluate_full: {out}")
+    check(n["fused_block"] > 0 and n["conv3x3"] > 0, f"evaluate_full launched {n}")
+
+
+def evaluation_phase(torch, np, cuda_lib, fb, attn, models, dev, world_dir, card) -> dict:
+    """The evaluation path: the VAE, the tiled samplers and the metrics, the
+    latency harness, in-training KID.  Returns the launches by (kernel, type)."""
+    from terrain_diffusion_tpu_torch.nn.edm_autoencoder import (EDMAutoencoder,
+                                                               EDMAutoencoderConfig)
+
+    launches = EvalLaunches(torch, cuda_lib, fb, attn)
+    vae = EDMAutoencoder(EDMAutoencoderConfig.from_dict(model_config(VAE_CFG)), device=dev,
+                         generator=torch.Generator().manual_seed(SEED + 9)).eval()
+    print(f"[eval] {card}: VAE {VAE_CFG}: {vae.count_parameters() / 1e6:.2f} M parameters",
+          flush=True)
+    vae_phase(torch, np, vae, dev, launches, card)
+    sampler_phase(torch, np, models, vae, dev, launches, card)
+    del vae
+    torch.cuda.empty_cache()
+    latency_phase(torch, dev, world_dir, launches, card)
+    kid_phase(torch, dev, world_dir, launches, card)
+    return launches.total
+
 
 def main():
     try:
@@ -1600,10 +1887,14 @@ def main():
         torch.cuda.empty_cache()
         train_launches, _ = timed("training", lambda: training_phase(
             torch, np, cuda_lib, fb, attn, dev, world_dir))
+        torch.cuda.empty_cache()
+        eval_launches = timed("evaluation", lambda: evaluation_phase(
+            torch, np, cuda_lib, fb, attn, models, dev, world_dir, card))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
-    for suffix, counts in (("", launches), (BF16, launches16), (FP16, launches_fp16)):
+    for suffix, counts, dt in (("", launches, torch.float32), (BF16, launches16, torch.bfloat16),
+                               (FP16, launches_fp16, torch.float16)):
         for kernel, (source, replaces, case) in KERNELS.items():
             mine = [r for r in rows if r["kernel"] == kernel + suffix]
             main_case = next(r for r in mine if r["case"] == case)
@@ -1615,7 +1906,10 @@ def main():
                            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
                            "library_ms": main_case["library_ms"],
                            "library_device_ms": main_case["library_device_ms"], "case": case,
-                           "training_launches": train_launches[kernel] if not suffix else 0})
+                           "training_launches": train_launches[kernel] if not suffix else 0,
+                           "evaluation_launches": eval_launches.get((kernel, dt), 0)})
+    check(all(r["evaluation_launches"] > 0 for r in report[:len(KERNELS)]),
+          "a float32 kernel was not launched on the evaluation path")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Command-line helpers shared by the port's servers (counterpart of
-``terrain_diffusion_tpu.common.cli_helpers``)."""
+"""Command-line helpers shared by the port's servers and evaluation CLIs
+(counterpart of ``terrain_diffusion_tpu.common.cli_helpers``)."""
 from __future__ import annotations
 
 import argparse
@@ -41,9 +41,25 @@ def parse_batch_sizes(value: str):
     return int(value)
 
 
+def _missing_card(device: str) -> str | None:
+    """The usage error for a device that asks for a card torch cannot see."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        return f"--device {device}: torch sees no CUDA device; pass --device cpu to run on the CPU"
+    return None
+
+
 def check_device(ap: argparse.ArgumentParser, device: str):
     """Exit with a usage error, before any model is loaded, when the device
     asks for a card that torch cannot see: no quiet fallback to the CPU."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        ap.error(f"--device {device}: torch sees no CUDA device; "
-                 "pass --device cpu to run on the CPU")
+    message = _missing_card(device)
+    if message:
+        ap.error(message)
+
+
+def click_check_device(device: str):
+    """``check_device`` for the click entry points (the evaluation CLIs)."""
+    import click
+
+    message = _missing_card(device)
+    if message:
+        raise click.UsageError(message)

@@ -1,11 +1,13 @@
 """Weights across packages and on disk.
 
 - ``params_from_jax(model, tree)``: the JAX package's parameter pytree
-  (numpy leaves) as this package's state dict - HWIO -> OIHW for conv
-  weights, (in, out) -> (out, in) for linear weights, names from the same
-  table as the JAX package's torch-compat name map.
+  (numpy leaves) of an ``EDMUnet2D`` or an ``EDMAutoencoder`` as this
+  package's state dict - HWIO -> OIHW for conv weights, (in, out) ->
+  (out, in) for linear weights, names from the same tables as the JAX
+  package's torch-compat name maps.
 - ``load_model`` / ``save_model``: the reference directory layout
-  (``config.json`` + ``model.safetensors`` in reference state-dict naming).
+  (``config.json`` + ``model.safetensors`` in reference state-dict naming)
+  for both classes, chosen by the config's ``_class_name``.
   ``safetensors`` is imported only when a file is read or written.
 """
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import numpy as np
 import torch
 
+from terrain_diffusion_tpu_torch.nn.edm_autoencoder import (EDMAutoencoder,
+                                                           EDMAutoencoderConfig)
 from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
 
 
@@ -69,16 +73,46 @@ def unet_name_map(model: EDMUnet2D):
     return out
 
 
+def autoencoder_name_map(model: EDMAutoencoder):
+    """(state-dict name, JAX tree path, is_linear) triples for an
+    EDMAutoencoder: the encoder's U-Net entries under ``encoder``, then the
+    decoder's 1x1 conv, its blocks by plan index, the head, its gain and
+    the logvar."""
+    cfg = model.config
+    out = [(f"encoder.{n}", ("encoder",) + p, lin) for n, p, lin in unet_name_map(model.encoder)]
+    out.append(("decoder_conv.weight", ("decoder_conv", "w"), False))
+    for idx, (name, cin, cout, opts) in enumerate(model.decoder_plan):
+        prefix, tp = f"decoder.{idx}", ("decoder", name)
+        merged = {**cfg.block_kwargs, **opts}
+        out += [(f"{prefix}.emb_gain", tp + ("emb_gain",), False),
+                (f"{prefix}.conv_res0.weight", tp + ("conv_res0", "w"), False),
+                (f"{prefix}.conv_res1.weight", tp + ("conv_res1", "w"), False)]
+        if cin != cout:
+            out.append((f"{prefix}.conv_skip.weight", tp + ("conv_skip", "w"), False))
+        if merged.get("attention") and cout // merged.get("channels_per_head", 64) > 0:
+            out.append((f"{prefix}.attn_qkv.weight", tp + ("attn_qkv", "w"), False))
+            out.append((f"{prefix}.attn_proj.weight", tp + ("attn_proj", "w"), False))
+    out += [("out_conv.weight", ("out_conv", "w"), False), ("out_gain", ("out_gain",), False),
+            ("logvar", ("logvar",), False)]
+    return out
+
+
+def _name_map(model):
+    if isinstance(model, EDMAutoencoder):
+        return autoencoder_name_map(model)
+    return unet_name_map(model)
+
+
 def _tree_get(tree: dict, path):
     for k in path:
         tree = tree[k]
     return tree
 
 
-def params_from_jax(model: EDMUnet2D, tree: dict) -> dict:
+def params_from_jax(model, tree: dict) -> dict:
     """State dict (CPU float32 tensors) from a JAX parameter pytree."""
     state = {}
-    for tname, path, linear in unet_name_map(model):
+    for tname, path, linear in _name_map(model):
         arr = np.asarray(_tree_get(tree, path), dtype=np.float32)
         if arr.ndim == 4:  # HWIO -> OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
@@ -88,22 +122,26 @@ def params_from_jax(model: EDMUnet2D, tree: dict) -> dict:
     return state
 
 
-def load_model(path: str, *, device) -> EDMUnet2D:
-    """EDMUnet2D from a reference-format directory."""
+def load_model(path: str, *, device):
+    """EDMUnet2D or EDMAutoencoder (by ``_class_name``) from a
+    reference-format directory, in eval mode."""
     from safetensors.torch import load_file
 
     with open(os.path.join(path, "config.json")) as f:
         cfg = json.load(f)
     cls_name = cfg.get("_class_name", "EDMUnet2D")
-    if cls_name != "EDMUnet2D":
-        raise NotImplementedError(f"{cls_name} is not ported")
-    model = EDMUnet2D(EDMUnetConfig.from_dict(cfg), device=device,
-                      generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    if cls_name == "EDMAutoencoder":
+        model = EDMAutoencoder(EDMAutoencoderConfig.from_dict(cfg), device=device, generator=gen)
+    elif cls_name == "EDMUnet2D":
+        model = EDMUnet2D(EDMUnetConfig.from_dict(cfg), device=device, generator=gen)
+    else:
+        raise NotImplementedError(f"{cls_name} is not ported (ROADMAP.md section 1)")
     model.load_state_dict(load_file(os.path.join(path, "model.safetensors")))
     return model.eval()
 
 
-def save_model(model: EDMUnet2D, path: str):
+def save_model(model, path: str):
     """Write `model` in the reference directory format."""
     from safetensors.torch import save_file
 

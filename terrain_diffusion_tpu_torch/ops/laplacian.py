@@ -70,12 +70,19 @@ def laplacian_encode(x: torch.Tensor, downsample_size, sigma: float,
 
 
 def laplacian_decode(residual: torch.Tensor, lowres: torch.Tensor,
-                     extrapolate: bool = False) -> torch.Tensor:
-    """residual + upsample(lowres)."""
-    size = residual.shape[-2:]
-    if extrapolate:
-        return residual + resize_extrapolated(lowres, size)
-    return residual + resize_bilinear(lowres, size)
+                     extrapolate: bool = False, pre_padded: bool = False) -> torch.Tensor:
+    """residual + upsample(lowres); with ``pre_padded`` the low band carries
+    one extra border sample per side, and the upsample target grows by the
+    matching pixel count before that halo is cropped."""
+    size = tuple(residual.shape[-2:])
+    pad = 0
+    if pre_padded:
+        pad = residual.shape[-1] // (lowres.shape[-1] - 2)
+        size = (size[0] + 2 * pad, size[1] + 2 * pad)
+    up = resize_extrapolated(lowres, size) if extrapolate else resize_bilinear(lowres, size)
+    if pad:
+        up = up[..., pad:-pad, pad:-pad]
+    return residual + up
 
 
 def laplacian_denoise(residual: torch.Tensor, lowres: torch.Tensor, sigma: float):

@@ -19,6 +19,10 @@ included):
    /, a square root taken in float64, bit casts), so the CPU and the card
    give the same floats, and JAX's values within a few float32 ulps (its
    log1p differs).
+
+``key_from_seed`` / ``split`` / ``normal`` are ``jax.random.key`` /
+``split`` / ``normal`` on explicit keys, the generator of the evaluation
+samplers: the same seed gives JAX's draws.
 """
 from __future__ import annotations
 
@@ -235,6 +239,37 @@ def threefry_noise_patch(seed, y0: int, x0: int, *, h: int, w: int, channels: in
     """(C, h, w) crop of the threefry tile field at corner (y0, x0)."""
     return threefry_noise_batch(seed, [y0], [x0], h, w, channels, tile_h, tile_w,
                                 device)[0]
+
+
+# ---------------------------------------------------------------------------
+# Explicit keys: jax.random.key / split / normal
+# ---------------------------------------------------------------------------
+
+def key_from_seed(seed: int) -> tuple[int, int]:
+    """``jax.random.key(seed)`` for an int32 seed: the key words
+    (0, seed mod 2**32).  A key is a pair of python ints (uint32 words)."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise OverflowError(f"seed {seed} is outside int32, as JAX's key() takes it")
+    return 0, seed & _M32
+
+
+def split(key, n: int = 2) -> list:
+    """``jax.random.split(key, n)`` under jax_threefry_partitionable: key i
+    is ``threefry2x32(key, (0, i))``, bit for bit."""
+    k1, k2 = _as_words(key[0], "cpu"), _as_words(key[1], "cpu")
+    y1, y2 = threefry2x32(k1, k2, torch.zeros(n, dtype=torch.int64),
+                          torch.arange(n, dtype=torch.int64))
+    return [(int(a), int(b)) for a, b in zip(y1.tolist(), y2.tolist())]
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 on ``device``: the bits
+    equal JAX's, the values agree within 5e-7 (``normal_from_bits``)."""
+    shape = tuple(int(d) for d in shape)
+    ctr = torch.arange(int(np.prod(shape)), device=device, dtype=torch.int64)
+    k = (_as_words(key[0], device), _as_words(key[1], device))
+    return normal_from_bits(random_bits(k, ctr)).reshape(shape)
 
 
 class NoiseProvider:

@@ -7,7 +7,9 @@ orders 1-3 with lower-order-final logic.  The per-step solver order is
 resolved statically from the step index and config (``_order_schedule``).
 Scalar coefficients are computed in float32, as the JAX program computes
 them, so both packages scale the sample by the same numbers.  Exponential
-terms are sigma ratios, so the final sigma=0 step is finite.
+terms are sigma ratios, so the final sigma=0 step is finite.  The EDM
+pre-conditioning, ``add_noise`` and the AutoGuidance
+``scale_score_in_velocity`` work on tensors.
 """
 from __future__ import annotations
 
@@ -62,6 +64,51 @@ def compute_sigmas(cfg: EDMSchedulerConfig, num_steps: int) -> np.ndarray:
 def trigflow_precondition_noise(sigma, sigma_data: float):
     """arctan(sigma / sigma_data) in float32."""
     return f32(np.arctan(f32(sigma) / f32(sigma_data)))
+
+
+def init_noise_sigma(cfg: EDMSchedulerConfig) -> float:
+    return float((cfg.sigma_max ** 2 + 1) ** 0.5)
+
+
+def precondition_inputs(sample, sigma, sigma_data: float):
+    return sample / torch.sqrt(torch.as_tensor(sigma) ** 2 + sigma_data ** 2)
+
+
+def precondition_noise(sigma):
+    return 0.25 * torch.log(torch.as_tensor(sigma))
+
+
+def precondition_outputs(sample, model_output, sigma, sigma_data: float,
+                         prediction_type: str = "epsilon"):
+    sigma = torch.as_tensor(sigma)
+    c_skip = sigma_data ** 2 / (sigma ** 2 + sigma_data ** 2)
+    c_out = sigma * sigma_data / torch.sqrt(sigma ** 2 + sigma_data ** 2)
+    if prediction_type == "v_prediction":
+        c_out = -c_out
+    return c_skip * sample + c_out * model_output
+
+
+def add_noise(original, noise, sigma):
+    return original + noise * sigma
+
+
+def scale_score_in_velocity(v0, sample, sigma, model_output, alpha: float = 1.5,
+                            sigma_data: float = 0.5, eps: float = 1e-20):
+    """AutoGuidance helper: scale only the score-parallel component of a
+    velocity, per sample (reference ``dpmsolver.py:27-72``)."""
+    sigma = torch.as_tensor(sigma, dtype=sample.dtype, device=sample.device)
+    while sigma.dim() < sample.dim():
+        sigma = sigma[..., None]
+    sigma2 = sigma * sigma
+    sd2 = sigma_data * sigma_data
+    denoised = (sd2 / (sigma2 + sd2)) * sample \
+        + (sigma * sigma_data / torch.sqrt(sigma2 + sd2)) * model_output
+    d = denoised - sample
+    dims = tuple(range(1, v0.dim()))
+    dot_vd = torch.sum(v0 * d, dim=dims, keepdim=True)
+    dot_dd = torch.clamp(torch.sum(d * d, dim=dims, keepdim=True), min=eps)
+    v_par = (dot_vd / dot_dd) * d
+    return (v0 - v_par) + alpha * v_par
 
 
 def _order_schedule(cfg: EDMSchedulerConfig, num_steps: int) -> list:

@@ -9,8 +9,8 @@ subset weighting, beauty-score stratified sampling, 8-way pre-augmented
 latents, D4 augmentation with inverse-transformed source coords, and the
 conditioning images.  ``h5py`` is imported only where a file is opened.
 
-Ported: ``H5LatentsDataset`` (without ``val_dset`` ground truth, which feeds
-the unported evaluation), ``H5DecoderTerrainDataset``, ``LongDataset``,
+Ported: ``H5LatentsDataset`` (with ``val_dset``'s real-DEM ground truth,
+which the evaluation reads), ``H5DecoderTerrainDataset``, ``LongDataset``,
 ``collate`` and ``batch_iterator``.  ``batch_iterator`` yields batches in
 index order from one producer thread: the JAX iterator's two workers may
 hand over two batches out of order, and a resumed run must see the batches
@@ -96,10 +96,6 @@ class H5LatentsDataset(_H5SubsetMixin):
                  cond_input_max_noise=0.0, val_dset=False):
         import h5py
 
-        if val_dset:  # the evaluation's real-DEM ground truth and its noise-free items
-            raise NotImplementedError("val_dset=True (real DEM ground truth for the "
-                                      "evaluation) is not ported yet (ROADMAP.md section 1)")
-
         self.h5_file = h5_file
         self.crop_size = crop_size
         self.subset_weights = np.asarray(
@@ -112,6 +108,7 @@ class H5LatentsDataset(_H5SubsetMixin):
         self.latents_std = np.asarray(latents_std or [1, 1, 1, 1], np.float32).reshape(-1, 1, 1)
         self.sigma_data = sigma_data
         self.clip_edges = clip_edges
+        self.val_dset = val_dset
         self.cond_input_dropout = cond_input_dropout
         self.cond_input_max_noise = cond_input_max_noise
         n = len(self.subset_weights)
@@ -176,12 +173,12 @@ class H5LatentsDataset(_H5SubsetMixin):
             climate_means = out_climate.reshape(4, oh, HALO, ow, HALO).mean(axis=(2, 4))
         mask = 1.0 - np.isnan(means).astype(np.float32)
 
-        if self.cond_input_dropout:
+        if self.cond_input_dropout and not self.val_dset:
             keep = self.rng.random(mask.shape) > self.cond_input_dropout
             mask = mask * keep
             means = np.where(mask == 0, np.nan, means)
             p5 = np.where(mask == 0, np.nan, p5)
-        if self.cond_input_max_noise:
+        if self.cond_input_max_noise and not self.val_dset:
             noise_level = float(self.rng.random())
             nstd = noise_level * self.cond_input_max_noise
             means = means + self.rng.standard_normal(means.shape) * nstd
@@ -232,7 +229,7 @@ class H5LatentsDataset(_H5SubsetMixin):
         if self.beauty_dist[subset_idx]:
             lens = np.array([len(self.keys[subset_idx][i]) for i in range(5)], np.float64)
             baseline = np.log(np.maximum(lens, 1e-9) / lens.sum())
-            histogram_raw = self.rng.standard_normal(5)
+            histogram_raw = self.rng.standard_normal(5) if not self.val_dset else np.zeros(5)
             logits = histogram_raw + baseline
             probs = np.exp(logits - logits.max())
             probs[lens == 0] = 0
@@ -240,7 +237,7 @@ class H5LatentsDataset(_H5SubsetMixin):
             b = int(self.rng.choice(5, p=probs))
             bucket = self.keys[subset_idx][b]
         else:
-            histogram_raw = self.rng.standard_normal(5)
+            histogram_raw = self.rng.standard_normal(5) if not self.val_dset else np.zeros(5)
             # beauty_dist off: sample uniformly over the WHOLE subset, not
             # just the first beauty bucket (keys are always bucketed)
             bucket = [k for b in self.keys[subset_idx] for k in b]
@@ -287,9 +284,12 @@ class H5LatentsDataset(_H5SubsetMixin):
             else:
                 lf = np.asarray(data_lowfreq[li:li + h, lj:lj + w], np.float32)[None]
             lf = _apply_d4(lf, flip, rotate_k)
+            lowfreq_padded = lf if self.clip_edges else None
             if self.clip_edges:
                 lf = lf[..., 1:-1, 1:-1]
             lf = (lf - LOWFREQ_MEAN) / LOWFREQ_STD * self.sigma_data
+            ground_truth = self._ground_truth(f, group_path, li, lj, h, w, flip, rotate_k,
+                                              lf, lowfreq_padded) if self.val_dset else None
 
             cond_img, noise_level = self._get_cond_image(
                 f, group_path, li, lj, h, w, flip, rotate_k)
@@ -305,9 +305,34 @@ class H5LatentsDataset(_H5SubsetMixin):
                "cond_inputs": cond_inputs, "cond_inputs_img": cond_img,
                "path": group_path,
                "histogram_raw": histogram_raw, "noise_level": noise_level}
+        if ground_truth is not None:
+            out["ground_truth"] = _chw_to_hwc(ground_truth)
         return out
 
     __getitem__ = getitem
+
+    def _ground_truth(self, f, group_path, li, lj, h, w, flip, rotate_k, lf, lowfreq_padded):
+        """Real DEM ground truth (``val_dset``): the raw residual crop at x8
+        the latent coords, laplacian-decoded against the raw lowfreq -
+        signed-sqrt-space terrain at output resolution."""
+        import torch
+
+        from terrain_diffusion_tpu_torch.ops.laplacian import laplacian_decode
+
+        if f"{group_path}/residual" not in f:
+            raise KeyError(f"{group_path!r} has no 'residual' dataset: val_dset=True needs an "
+                           "encoded file built with residuals")
+        res8 = np.asarray(f[f"{group_path}/residual"][li * 8:(li + h) * 8, lj * 8:(lj + w) * 8],
+                          np.float32)[None]
+        res8 = torch.from_numpy(np.ascontiguousarray(_apply_d4(res8, flip, rotate_k)))
+        if self.clip_edges:
+            gt = laplacian_decode(res8, torch.from_numpy(np.ascontiguousarray(lowfreq_padded)),
+                                  pre_padded=True)
+        else:
+            low = self.denormalize_lowfreq(lf / self.sigma_data)
+            gt = laplacian_decode(res8, torch.from_numpy(np.ascontiguousarray(low)),
+                                  extrapolate=True)
+        return gt.numpy().astype(np.float32)
 
     @staticmethod
     def denormalize_lowfreq(lowfreq):

@@ -11,7 +11,8 @@ Registries provided: ``scheduler``, ``model``, ``lr_sched``, ``dataset``,
 resolves to a ``UnetSpec``: a torch module holds its weights, so the trainer
 builds it (``spec.build(device, generator)``) from the run's seed, where
 JAX's stateless model is initialized by ``model.init(key)``.  The
-``autoencoder`` and ``perceptron`` models raise NotImplementedError.
+``autoencoder`` and ``perceptron`` models raise NotImplementedError: their
+trainers are not ported.
 """
 from __future__ import annotations
 
@@ -175,7 +176,8 @@ def build_registry():
 
     @model_registry.register("autoencoder")
     def make_autoencoder(**kwargs):
-        raise NotImplementedError("the autoencoder model is not ported yet (ROADMAP.md section 1)")
+        raise NotImplementedError("the autoencoder trainer is not ported yet (ROADMAP.md "
+                                  "section 1); nn/edm_autoencoder.py is")
 
     @model_registry.register("perceptron")
     def make_perceptron(**kwargs):

@@ -3,10 +3,13 @@
 
 The model trains in training mode, so every forward runs the plain path
 (the kernels define no backward); ``evaluate`` runs the validation loss
-under ``torch.no_grad()`` in eval mode.  ``evaluate_full`` (validation loss
-plus KID) needs ``evaluation/``, which is not ported.
+under ``torch.no_grad()`` in eval mode.  ``evaluate_full`` adds KID with
+the shortest EMA's weights: a sampling run of inference forwards, which on
+the card take the kernels (``trainers/eval_kid.py``).
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -79,6 +82,38 @@ class DiffusionTrainer(TrainerBase):
             self.model.train()
         return {"val_loss": float(np.mean(losses))} if losses else {}
 
-    def evaluate_full(self, state: dict, val_dataset, generator) -> dict:
-        raise NotImplementedError("evaluate_full (validation loss + KID) needs evaluation/, "
-                                  "which is not ported yet (ROADMAP.md section 1)")
+    def evaluate_full(self, state: dict, val_dataset, generator: torch.Generator,
+                      key=None) -> dict:
+        """Validation loss plus KID with the EMA weights (reference
+        ``diffusion.py:355-427``), sampling on validation conditioning and,
+        with ``[evaluation] kid_autoencoder_path``, decoding the latents to
+        terrain through that decoder.  ``key`` (a threefry key) drives the
+        sampling as JAX's key does; by default it is drawn from
+        ``generator``, which also draws the validation loss's noise."""
+        from terrain_diffusion_tpu_torch.nn import torch_compat
+        from terrain_diffusion_tpu_torch.ops.noise_field import key_from_seed, split
+        from terrain_diffusion_tpu_torch.training.datasets import collate
+        from terrain_diffusion_tpu_torch.training.trainers.eval_kid import evaluate_kid
+
+        ev = self.config.get("evaluation", {})
+        n_val = int(ev.get("validation_steps", 64))
+        bs = int(ev.get("kid_batch_size", 8))
+        batches = [collate([val_dataset[i * bs + j] for j in range(bs)])
+                   for i in range(max(n_val // bs, 1))]
+        if key is None:
+            key = key_from_seed(int(torch.randint(0, 2 ** 31, (1,), generator=generator)))
+        _key, _k1, k2 = split(key, 3)
+        out = self.evaluate(state, batches, generator)
+        if not ev.get("kid_enabled", False):
+            return out
+        model = copy.deepcopy(self.model).eval().requires_grad_(False)
+        if state.get("ema") is not None and state["ema"].emas:
+            model.load_state_dict({**model.state_dict(), **state["ema"].shortest()})
+        decoder = None
+        if ev.get("kid_autoencoder_path"):
+            decoder = torch_compat.load_model(ev["kid_autoencoder_path"], device=self.device)
+        kid = evaluate_kid(model, val_dataset, k2, mode=ev.get("mode", "base"),
+                           n_images=int(ev.get("kid_n_images", 128)), batch=bs,
+                           steps=int(ev.get("kid_scheduler_steps", 12)), decoder=decoder)
+        out.update({f"val_{k}": v for k, v in kid.items()})
+        return out

@@ -587,3 +587,63 @@ def test_training_forward_on_the_card_takes_the_plain_path(dev):
     top = sum(1 for name, kind, *_ in card.enc_plan + card.dec_plan
               if kind == "block" and name.startswith("128x128_"))
     assert (fb.fused_block.launches, fb.conv3x3.launches) == (top, 2)
+
+
+# The VAE (autoencoder_x8.cfg): blocks without an embedding (c = None) at the
+# enc and dec widths the decoder U-Net never sends - a 256 -> 128 projection,
+# 128- and 256-channel pre-upsamples, 128 -> 256 and 128 -> 64 projections -
+# on ragged maps, and the encoder's in conv from 2 channels (1 + the ones
+# channel) to 64.
+VAE_BLOCKS = [  # (n, h, w, cin, cout, mode, pre_upsample, projection)
+    (2, 40, 72, 64, 64, "enc", 1, False),
+    (2, 40, 72, 128, 128, "enc", 1, False),
+    (1, 33, 47, 128, 256, "enc", 1, True),
+    (1, 33, 47, 256, 256, "enc", 1, False),
+    (1, 33, 47, 256, 256, "dec", 1, False),
+    (1, 20, 36, 256, 256, "dec", 2, False),
+    (2, 21, 37, 256, 128, "dec", 1, True),
+    (2, 40, 72, 128, 128, "dec", 1, False),
+    (1, 20, 36, 128, 128, "dec", 2, False),
+    (2, 21, 37, 128, 64, "dec", 1, True),
+    (2, 40, 72, 64, 64, "dec", 1, False),
+]
+VAE_TYPES = pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,mode,preup,proj", VAE_BLOCKS)
+@VAE_TYPES
+def test_vae_block_shapes(dev, dt, n, h, w, cin, cout, mode, preup, proj):
+    g = torch.Generator().manual_seed(12)
+    c_main = cout if (mode == "enc" and proj) else cin
+    x = _rand(g, (n, h, w, cin), dev).to(dt)
+    w0 = _rand(g, (3, 3, c_main, cout), dev, (9 * c_main) ** -0.5)
+    w1 = _rand(g, (3, 3, cout, cout), dev, (9 * cout) ** -0.5)
+    wskip = _rand(g, (cin, cout), dev, cin ** -0.5) if proj else None
+    kw = dict(mode=mode, pixel_norm=(mode == "enc"), res_balance=0.3, clip_act=256.0,
+              pre_upsample=preup)
+    before = fb.fused_block.launches
+    got = fb.fused_block(x, w0, w1, None, wskip, **kw)
+    torch.cuda.synchronize()
+    assert fb.fused_block.launches == before + 1
+    assert got.shape == (n, h * preup, w * preup, cout)
+    exact = fb.fused_block_reference(*(t.double().cpu() if t is not None else None
+                                       for t in (x, w0, w1, None, wskip)), **kw)
+    _check_any(got, fb.fused_block_reference(x, w0, w1, None, wskip, **kw), exact, dt)
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 64, 64), (1, 37, 53), (16, 9, 21)])
+@VAE_TYPES
+def test_vae_in_conv(dev, dt, n, h, w):
+    g = torch.Generator().manual_seed(13)
+    x = _rand(g, (n, h, w, 2), dev).to(dt)
+    wt = _rand(g, (3, 3, 2, 64), dev, 18 ** -0.5)
+    if dt != torch.float32:
+        assert fb.conv16_path(3, 2, 64) == "in_conv"
+    before = fb.conv3x3.launches
+    got = fb.conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert fb.conv3x3.launches == before + 1
+    exact = torch.nn.functional.conv2d(x.double().cpu().permute(0, 3, 1, 2),
+                                       wt.double().cpu().permute(3, 2, 0, 1),
+                                       padding=1).permute(0, 2, 3, 1)
+    _check_any(got, fb.conv3x3_reference(x, wt), exact, dt)
