@@ -128,6 +128,21 @@ Phases, each of which exits non-zero on failure:
    holds the VAE's block shapes that no other row has and its 2 -> 64 in
    conv, in float32 and bf16 (``vae ...`` rows; the blocks take no
    embedding).
+10. surface: the rest of the serving surface through the command group
+   (``python -m terrain_diffusion_tpu_torch``'s ``cli``, in process) on phase
+   6's world: ``generate --caching-strategy direct --coarse-window 4`` (one
+   2048x2048 residual slice, float32); ``tiff-export`` of a 4x4-cell
+   conditioning set (five GeoTIFFs written from the seed) to a 1024x1024
+   int16 GeoTIFF in bf16, read back (shape, transform scaled by 256) and
+   held within 1 m of a fresh ``world.get`` on the same pipeline bound
+   again; ``explore --threaded`` on a localhost port (every route, statuses
+   and mimetypes, detail_raw equal to ``world.get`` floored to int16, POST
+   /api/seed last); ``random_sampler`` (2 tiles of 512 in bf16, finite, the
+   centres at least the separation apart).  Each path's launches are held
+   to its pipeline's model forwards, every one in the path's type; it
+   prints ``{"surface": {...}}`` with seconds, launches and peak GiB per
+   path.  Indirect caching needs h5py, which the card machine lacks: the
+   phase runs direct caching.
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
@@ -141,7 +156,9 @@ The last lines are a JSON kernel report (a row per kernel and type:
 launches from the Minecraft phase in float32 and bf16 and from the fp16
 forwards in fp16, ``training_launches`` from the consistency run,
 ``evaluation_launches`` from the evaluation phase, which must be positive
-for the three float32 kernels), the card's name and power limit, and
+for the three float32 kernels, ``surface_launches`` from the surface phase,
+which must be positive for the float32 and bf16 kernels), the card's name
+and power limit, and
 {"ok": true, "device": {...}}.
 """
 import configparser
@@ -1810,6 +1827,247 @@ def evaluation_phase(torch, np, cuda_lib, fb, attn, models, dev, world_dir, card
     return launches.total
 
 
+# ---------------------------------------------------------------------------
+# surface phase
+# ---------------------------------------------------------------------------
+
+class Pipelines:
+    """Records every WorldPipeline an entry point binds, so the phase can
+    read its stage calls and drive it again after the command returns."""
+
+    def __enter__(self):
+        from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+
+        self.cls, self.orig, self.made = WorldPipeline, WorldPipeline.bind, []
+
+        def bind(pipe, *a, **k):
+            self.made.append(pipe)
+            return self.orig(pipe, *a, **k)
+
+        WorldPipeline.bind = bind
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.bind = self.orig
+
+    def one(self, label):
+        worlds = {id(p): p for p in self.made}
+        check(len(worlds) == 1, f"{label}: {len(worlds)} pipelines were bound, expected 1")
+        return self.made[0]
+
+
+class SurfacePath:
+    """One path of the surface phase: zeroes the launch counts and the peak
+    memory, runs, checks the launches against the model forwards of the
+    pipeline ``world()`` names (``check_launches``) and keeps seconds,
+    launches and peak GiB."""
+
+    def __init__(self, torch, cuda_lib, fb, attn, report):
+        self.torch, self.cuda_lib, self.fb, self.attn = torch, cuda_lib, fb, attn
+        self.report = report
+        self.by_dtype = {}
+
+    def run(self, label, fn, dtype, world):
+        torch = self.torch
+        torch.cuda.reset_peak_memory_stats()
+        self.cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = check_launches(torch, self.cuda_lib, self.fb, self.attn, world(), {},
+                                  f"surface {label}", dtype=dtype)
+        for k, f in (("fused_block", self.fb.fused_block), ("conv3x3", self.fb.conv3x3),
+                     ("attention", self.attn.fused_pixelnorm_attention)):
+            for dt, n in f.launches_by_dtype.items():
+                self.by_dtype[(k, dt)] = self.by_dtype.get((k, dt), 0) + n
+        self.report[label] = {"seconds": seconds, "launches": launches,
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        return out
+
+
+def surface_generate(path, cli, world_dir):
+    """``generate``: one 2048x2048 residual slice in float32, direct caching."""
+    import torch
+
+    with Pipelines() as made:
+        out = path.run("generate", lambda: cli.main(
+            ["generate", world_dir, "--caching-strategy", "direct", "--coarse-window", "4",
+             "--seed", str(SEED), "--log-mode", "info", "--device", "cuda"],
+            standalone_mode=False), torch.float32, lambda: made.one("generate"))
+    check(out["seed"] == SEED and out["decoder_windows"] > 0, f"generate returned {out}")
+    path.report["generate"].update(out)
+    print(f"[surface generate] {json.dumps(path.report['generate'])}", flush=True)
+
+
+def surface_tiff_export(path, cli, np, world_dir, work_dir):
+    """``tiff-export`` of a 4x4-cell conditioning set to a 1024x1024 int16
+    GeoTIFF in bf16; the file read back, and the chunk against a fresh
+    ``world.get`` on the same pipeline."""
+    import torch
+
+    from terrain_diffusion_tpu_torch.common.geotiff import Affine, read_geotiff, write_geotiff
+    from terrain_diffusion_tpu_torch.serving import tiff_export
+
+    tdir = os.path.join(work_dir, "conditioning")
+    os.makedirs(tdir, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    transform = Affine.from_bounds(10.0, 45.0, 14.0, 49.0, 4, 4)
+    means = {"heightmap.tif": (600.0, 900.0), "temperature.tif": (12.0, 6.0),
+             "temperature_std.tif": (0.08, 0.02), "precipitation.tif": (800.0, 300.0),
+             "precipitation_cv.tif": (30.0, 8.0)}
+    for name, (mean, std) in means.items():
+        write_geotiff(os.path.join(tdir, name),
+                      (mean + std * rng.standard_normal((4, 4))).astype(np.float32), transform)
+    out_tif = os.path.join(work_dir, "export.tif")
+    with Pipelines() as made:
+        canvas = path.run("tiff-export", lambda: cli.main(
+            ["tiff-export", world_dir, tdir, out_tif, "--dtype", "bf16",
+             "--seed", str(SEED), "--device", "cuda"], standalone_mode=False),
+            torch.bfloat16, lambda: made.one("tiff-export"))
+        world = made.one("tiff-export")
+    arr, back_t, _ = read_geotiff(out_tif)
+    check(arr.dtype == np.int16 and arr.shape == (1024, 1024) and np.array_equal(arr, canvas),
+          f"tiff-export file: {arr.dtype} {arr.shape}")
+    check(back_t == transform.scaled_pixels(tiff_export.PIXELS_PER_CELL),
+          f"tiff-export transform {back_t} != {transform.scaled_pixels(256)}")
+    # the same pipeline bound afresh (its imports and SNR stay): the chunk again
+    world.bind()
+    p0 = tiff_export.PADDING * tiff_export.PIXELS_PER_CELL
+    fresh = world.get(p0, p0, p0 + 1024, p0 + 1024, with_climate=False)["elev"]
+    fresh = np.clip(fresh, -32768, 32767).astype(np.int16)
+    world.close()
+    diff = int(np.abs(fresh.astype(np.int32) - canvas).max())
+    print(f"[surface tiff-export] 1024x1024 int16, elev [{canvas.min()}, {canvas.max()}] m, "
+          f"std {canvas.std():.1f}; max|file - fresh world.get| {diff} m", flush=True)
+    check(diff <= 1 and canvas.std() > 0, f"tiff-export chunk differs from world.get by {diff} m")
+    path.report["tiff-export"]["max_diff_m"] = diff
+
+
+def surface_explore(path, cli, np, world_dir):
+    """``explore --threaded`` on a free port: every route once, POST /api/seed
+    last; detail_raw against ``world.get`` of the same region."""
+    import torch
+
+    from terrain_diffusion_tpu_torch.serving.explorer import server as explorer
+
+    port = free_port()
+    errors = []
+
+    def serve():
+        try:
+            cli.main(["explore", world_dir, "--threaded", "--host", "127.0.0.1", "--port",
+                      str(port), "--seed", str(SEED), "--log-mode", "info",
+                      "--device", "cuda"], standalone_mode=False)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def requests():
+        thread = threading.Thread(target=serve, daemon=True)
+        thread.start()
+        deadline = time.perf_counter() + 300
+        while True:
+            check(not errors, f"explore failed: {errors[0]!r}" if errors else "")
+            try:
+                status, headers, body = http_get(port, "/api/status")
+                break
+            except OSError:
+                check(time.perf_counter() < deadline, "the explorer did not start")
+                time.sleep(0.2)
+        answers = {"/api/status": (status, headers, body)}
+        for route in ("/", "/api/coarse.png?channel=0", "/api/coarse_data.json",
+                      "/api/coarse_stats", "/api/detail_raw?ci=0&cj=0&detail_size=512",
+                      "/api/detail.png?ci=0&cj=0&detail_size=512&mode=relief",
+                      "/api/detail.png?ci=0&cj=0&detail_size=512&mode=elevation"):
+            t0 = time.perf_counter()
+            answers[route] = http_get(port, route)
+            print(f"[surface explore] GET {route}: {answers[route][0]}, "
+                  f"{answers[route][1].get('Content-Type')}, {len(answers[route][2])} bytes, "
+                  f"{(time.perf_counter() - t0) * 1000:.1f} ms", flush=True)
+        return thread, answers
+
+    thread, answers = path.run("explore", requests, torch.float32,
+                               lambda: explorer._PIPELINE)
+    world = explorer._PIPELINE
+    mimes = {"/": "text/html", "/api/status": "application/json",
+             "/api/coarse.png?channel=0": "image/png",
+             "/api/coarse_data.json": "application/json",
+             "/api/coarse_stats": "application/json",
+             "/api/detail_raw?ci=0&cj=0&detail_size=512": "application/octet-stream",
+             "/api/detail.png?ci=0&cj=0&detail_size=512&mode=relief": "image/png",
+             "/api/detail.png?ci=0&cj=0&detail_size=512&mode=elevation": "image/png"}
+    for route, mime in mimes.items():
+        status, headers, body = answers[route]
+        check(status == 200 and headers.get("Content-Type") == mime,
+              f"explore {route}: {status} {headers.get('Content-Type')}")
+        check(mime != "image/png" or body[:8] == b"\x89PNG\r\n\x1a\n", f"{route}: not a PNG")
+    status = json.loads(answers["/api/status"][2])
+    check(status["seed"] == str(SEED) and status["cell_px"] == 256, f"/api/status {status}")
+    check(len(json.loads(answers["/api/coarse_data.json"][2])["channels"]["Elev"]) == 100,
+          "coarse_data.json: not 100 rows")
+    _, headers, body = answers["/api/detail_raw?ci=0&cj=0&detail_size=512"]
+    h, w = int(headers["X-Height"]), int(headers["X-Width"])
+    check((h, w) == (512, 512) and headers["X-Has-Temp"] == "1" and len(body) == h * w * 6,
+          f"detail_raw: {h}x{w}, {len(body)} bytes")
+    elev = np.frombuffer(body[:h * w * 2], "<i2").reshape(h, w)
+    want = world.get(-256, -256, 256, 256)["elev"]
+    want = np.clip(np.floor(want), -32768, 32767).astype(np.int16)
+    check(np.array_equal(elev, want), "detail_raw elevation differs from world.get")
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/seed", data=b'{"seed": "12345"}', method="POST",
+            headers={"Content-Type": "application/json"}), timeout=300) as r:
+        seed_answer = (r.status, json.loads(r.read()))
+    check(seed_answer == (200, {"seed": "12345"}) and world.seed == 12345,
+          f"POST /api/seed: {seed_answer}")
+    print(f"[surface explore] detail_raw 512x512 equals world.get floored to int16; elev "
+          f"[{elev.min()}, {elev.max()}] m; POST /api/seed -> {seed_answer[1]}", flush=True)
+    explorer.app.server.shutdown()
+    thread.join(timeout=60)
+    world.close()
+
+
+def surface_random_sampler(path, np, world_dir, work_dir):
+    """``random_sampler``: 2 tiles of 512 in bf16 (its default type)."""
+    import torch
+
+    from terrain_diffusion_tpu_torch.serving import random_sampler
+
+    out_dir = os.path.join(work_dir, "random_tiles")
+    with Pipelines() as made:
+        tiles = path.run("random_sampler", lambda: random_sampler.main.main(
+            args=[world_dir, out_dir, "--n", "2", "--tile", "512", "--seed", str(SEED),
+                  "--device", "cuda"], standalone_mode=False),
+            torch.bfloat16, lambda: made.one("random_sampler"))
+    sep = 200 * 256  # sample_random_tiles' default separation
+    (a0, b0), (a1, b1) = tiles[0]["center"], tiles[1]["center"]
+    check(len(tiles) == 2 and all(t["elev"].shape == (512, 512) and np.isfinite(t["elev"]).all()
+                                  for t in tiles), "random_sampler: tiles not finite 512x512")
+    check(max(abs(a0 - a1), abs(b0 - b1)) >= sep, f"random_sampler centres {a0, b0} {a1, b1}")
+    check(len(os.listdir(out_dir)) == 2, "random_sampler wrote no PNGs")
+    print(f"[surface random_sampler] centres {tiles[0]['center']} {tiles[1]['center']}, elev "
+          + ", ".join(f"[{t['elev'].min():.0f}, {t['elev'].max():.0f}] m" for t in tiles),
+          flush=True)
+
+
+def surface_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
+    """The rest of the serving surface through the command group, in
+    process, on the Minecraft phase's world: generate, tiff-export, explore
+    and random_sampler.  Returns the launches by (kernel, type)."""
+    from terrain_diffusion_tpu_torch import __main__ as cli_main
+
+    report = {}
+    path = SurfacePath(torch, cuda_lib, fb, attn, report)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_surface_") as work_dir:
+        surface_generate(path, cli_main.cli, world_dir)
+        surface_tiff_export(path, cli_main.cli, np, world_dir, work_dir)
+        surface_explore(path, cli_main.cli, np, world_dir)
+        surface_random_sampler(path, np, world_dir, work_dir)
+    print(json.dumps({"surface": {"card": card, "caching_strategy": "direct (no h5py on the card)",
+                                  "paths": report}}), flush=True)
+    return path.by_dtype
+
+
 def main():
     try:
         import torch
@@ -1890,6 +2148,9 @@ def main():
         torch.cuda.empty_cache()
         eval_launches = timed("evaluation", lambda: evaluation_phase(
             torch, np, cuda_lib, fb, attn, models, dev, world_dir, card))
+        torch.cuda.empty_cache()
+        surface_launches = timed("surface", lambda: surface_phase(
+            torch, np, cuda_lib, fb, attn, world_dir, card))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
@@ -1907,9 +2168,12 @@ def main():
                            "library_ms": main_case["library_ms"],
                            "library_device_ms": main_case["library_device_ms"], "case": case,
                            "training_launches": train_launches[kernel] if not suffix else 0,
-                           "evaluation_launches": eval_launches.get((kernel, dt), 0)})
+                           "evaluation_launches": eval_launches.get((kernel, dt), 0),
+                           "surface_launches": surface_launches.get((kernel, dt), 0)})
     check(all(r["evaluation_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched on the evaluation path")
+    check(all(r["surface_launches"] > 0 for r in report[:2 * len(KERNELS)]),
+          "a float32 or bf16 kernel was not launched on the surface paths")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,11 +30,18 @@ batch dimension.  Stochastic inputs come from a tiled noise field keyed on
 the pipeline's device one batch per call, or the portable PCG64 host field.
 Either way any tile is identical regardless of batch composition or
 evaluation order.
+
+``caching_strategy="indirect"`` keeps the stage windows in an HDF5 world
+file (``bind(hdf5_file)``; ``"TEMP"`` makes a temporary one that ``close``
+removes) in the JAX package's layout, so a world written by either package
+opens in the other.  It needs ``h5py``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -55,7 +62,7 @@ from terrain_diffusion_tpu_torch.pipeline.postprocessing import local_baseline_t
 from terrain_diffusion_tpu_torch.pipeline.synthetic_map import make_synthetic_map_factory
 from terrain_diffusion_tpu_torch.runtime.infinite_tensor import (InfiniteTensor,
                                                                  ensure_regions_multi)
-from terrain_diffusion_tpu_torch.runtime.tile_store import MemoryTileStore
+from terrain_diffusion_tpu_torch.runtime.tile_store import HDF5TileStore, MemoryTileStore
 from terrain_diffusion_tpu_torch.runtime.window import TensorWindow
 from terrain_diffusion_tpu_torch.scheduler.dpmsolver import (EDMSchedulerConfig,
                                                              compute_sigmas, sample_dpm,
@@ -75,6 +82,19 @@ SD = SCHED.sigma_data
 # dtype= values the port serves -> the stage models' compute type
 COMPUTE_DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16,
                   "fp16": torch.float16}
+
+
+_TEMP_FILES = set()
+
+
+def resolve_hdf5_path(hdf5_file: str) -> str:
+    """The world file's path; ``"TEMP"`` makes a new temporary file."""
+    if hdf5_file.upper() == "TEMP":
+        f = tempfile.NamedTemporaryFile(delete=False, suffix=".h5", prefix="terrain_")
+        f.close()
+        _TEMP_FILES.add(f.name)
+        return f.name
+    return hdf5_file
 
 
 def _ceil_div(a, b):
@@ -109,8 +129,6 @@ class WorldPipeline:
             raise ValueError(f"unknown noise mode {noise_mode!r}")
         if dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}: 'fp32', 'bf16' or 'fp16'")
-        if caching_strategy != "direct":
-            raise NotImplementedError("only caching_strategy='direct' is ported")
         use_full_f32()
         self.T = T
         self.seed = (int(seed) & 0xFFFFFFFFFFFFFFFF) if seed is not None else next_seed(None)
@@ -143,6 +161,8 @@ class WorldPipeline:
         }
         self.coarse_model = self.base_model = self.decoder_model = None
         self.tile_store = None
+        self._hdf5_file_path = None
+        self._is_temp_file = False
         self.synthetic_map_factory = None
         self.coarse = self.latents = self.residual = None
         self.custom_conditioning_imports = {}
@@ -165,6 +185,15 @@ class WorldPipeline:
                                  for folder in (cls.COARSE_MODEL_FOLDER,
                                                 cls.BASE_MODEL_FOLDER,
                                                 cls.DECODER_MODEL_FOLDER)))
+
+    @classmethod
+    def from_local_models(cls, coarse_model_path=None, base_model_path=None,
+                          decoder_model_path=None, **kwargs) -> "WorldPipeline":
+        """A pipeline over three model directories given one by one."""
+        pipe = cls(**kwargs)
+        return pipe.set_models(*(torch_compat.load_model(path, device=pipe.device)
+                                 for path in (coarse_model_path, base_model_path,
+                                              decoder_model_path)))
 
     def get_config(self) -> dict:
         """The world's config.json (the JAX package's keys)."""
@@ -194,13 +223,50 @@ class WorldPipeline:
     # ==================================================================
     # Bind / lifecycle
     # ==================================================================
-    def bind(self, hdf5_file=None):
-        if hdf5_file is not None:
-            raise NotImplementedError("the HDF5 tile store is not ported")
-        self.tile_store = MemoryTileStore(cache_size_bytes=self.cache_limit)
+    def bind(self, hdf5_file=None, mode="a", compression="gzip", compression_opts=4):
+        """Create the tile store and the stage tensors.  In indirect mode the
+        windows go to `hdf5_file` ("TEMP" for a temporary file), whose stored
+        world parameters win over this pipeline's."""
+        self._compression = compression
+        self._compression_opts = compression_opts
+        if self.caching_strategy == "direct":
+            self.tile_store = MemoryTileStore(cache_size_bytes=self.cache_limit)
+        else:
+            if hdf5_file is None:
+                raise ValueError("hdf5_file is required when caching_strategy='indirect'")
+            original = hdf5_file
+            hdf5_file = resolve_hdf5_path(hdf5_file)
+            self._is_temp_file = original.upper() == "TEMP"
+            self._hdf5_file_path = hdf5_file
+            store = HDF5TileStore(hdf5_file, mode=mode, compression=compression,
+                                  compression_opts=compression_opts)
+            self._reconcile_params(store)
+            self.tile_store = store
         self._init_conditioning()
         self._build_hierarchy()
         return self
+
+    def _reconcile_params(self, store: HDF5TileStore):
+        """Stored world parameters win on a mismatch; ``log_mode`` is a
+        runtime knob and is neither compared nor adopted."""
+
+        def persisted(kw):
+            return {k: v for k, v in kw.items() if k != "log_mode"}
+
+        current = {"seed": self.seed, "kwargs": persisted(self.kwargs)}
+        stored = store.get_params()
+        if stored is None:
+            store.set_params(current)
+            return
+        stored_cmp = {"seed": stored["seed"], "kwargs": persisted(stored["kwargs"])}
+        if stored_cmp != current:
+            print("[WorldPipeline] stored world params differ; using stored "
+                  "(pass a fresh file or call rebuild() to regenerate)")
+            self.seed = stored["seed"]
+            self.kwargs = persisted(stored["kwargs"])
+            # attributes read outside self.kwargs follow the adopted parameters
+            self.latent_compression = self.kwargs.get("latent_compression",
+                                                      self.latent_compression)
 
     def _init_conditioning(self):
         self.synthetic_map_factory = make_synthetic_map_factory(
@@ -213,9 +279,20 @@ class WorldPipeline:
         self.residual = self._build_decoder_stage()
 
     def rebuild(self):
+        """Drop every cached window (in indirect mode, start the world file
+        afresh) and build the stage tensors again."""
         if self.tile_store is None:
             return
-        self.tile_store = MemoryTileStore(cache_size_bytes=self.cache_limit)
+        if self.caching_strategy == "direct":
+            self.tile_store = MemoryTileStore(cache_size_bytes=self.cache_limit)
+        else:
+            self.tile_store.close()
+            os.unlink(self._hdf5_file_path)
+            store = HDF5TileStore(self._hdf5_file_path, mode="a",
+                                  compression=self._compression,
+                                  compression_opts=self._compression_opts)
+            store.set_params({"seed": self.seed, "kwargs": self.kwargs})
+            self.tile_store = store
         self._init_conditioning()
         self._build_hierarchy()
 
@@ -321,6 +398,18 @@ class WorldPipeline:
         return {k: {"calls": v[0], "total_s": v[1], "mean_ms": v[1] / max(v[0], 1) * 1000}
                 for k, v in self.stage_timings.items()}
 
+    @contextlib.contextmanager
+    def profile(self, log_dir: str):
+        """``torch.profiler`` trace of everything inside the block, the card's
+        kernels included, written to ``log_dir/trace.json`` (Chrome trace)."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            yield self
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
     # ==================================================================
     # Helpers
     # ==================================================================
@@ -400,7 +489,7 @@ class WorldPipeline:
             lambda ctxs: self._timed("coarse", lambda: f(ctxs)),
             TensorWindow((7, TILE // pool, TILE // pool), (7, STRIDE // pool, STRIDE // pool)),
             batch_buckets=buckets, tile_store=self.tile_store,
-            tensor_id="base_coarse_map", device=self.device)
+            tensor_id="base_coarse_map", device=self.device, shape=(7, None, None))
 
     # ==================================================================
     # Latent stage
@@ -455,7 +544,7 @@ class WorldPipeline:
         out_win = TensorWindow((6, TILE, TILE), (6, STRIDE, STRIDE))
         coarse_win = TensorWindow((7, 4, 4), (7, 1, 1), offset=(0, -1, -1))
         kw = dict(batch_buckets=self._batch_sizes, tile_store=self.tile_store,
-                  device=self.device)
+                  device=self.device, shape=(6, None, None))
         init_f = self._latent_fn(t_init, 5819, with_prev=False)
         step_fs = [self._latent_fn(t, 5820 + i, with_prev=True)
                    for i, t in enumerate(t_inter)]
@@ -524,7 +613,7 @@ class WorldPipeline:
             args_windows=(TensorWindow((6, TILE // lc, TILE // lc),
                                        (6, STRIDE // lc, STRIDE // lc)),),
             batch_buckets=(1, 2, 4, 8, 16), tile_store=self.tile_store,
-            tensor_id="init_residual_map", device=self.device)
+            tensor_id="init_residual_map", device=self.device, shape=(2, None, None))
 
     # ==================================================================
     # Output composition
@@ -655,7 +744,22 @@ class WorldPipeline:
             self.tile_store.clear()
 
     def close(self):
-        """Drop the tile store and the stage tensors (the port keeps no
-        files or processes to release)."""
+        """Close the tile store (a temporary world file is removed) and drop
+        the stage tensors."""
+        if self.tile_store is not None:
+            self.tile_store.close()
+        if self._is_temp_file and self._hdf5_file_path in _TEMP_FILES:
+            try:
+                os.unlink(self._hdf5_file_path)
+            except OSError:
+                pass
+            _TEMP_FILES.discard(self._hdf5_file_path)
         self.tile_store = None
         self.coarse = self.latents = self.residual = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

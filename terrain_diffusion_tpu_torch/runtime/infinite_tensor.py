@@ -14,6 +14,10 @@ and collects every missing window per tensor, then evaluates tensors
 parents-first with windows grouped into padded batch buckets, so each stage
 runs a few batched calls.  Windows are summed in sorted index order.
 
+Windows live in the tile store: on the pipeline's device in the memory
+store, as float32 host arrays in the HDF5 store (``tile_store.host``), which
+this module moves to and from the device.
+
 Window functions are vectorized: ``f(ctxs, *arg_stacks) -> (B, *window)``
 with ``ctxs`` an int64 array (B, ndim) of window indices and one stacked
 region tensor (B, ...) per argument tensor.  B is padded up to the next
@@ -25,15 +29,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from terrain_diffusion_tpu_torch.runtime.tile_store import MemoryTileStore
+from terrain_diffusion_tpu_torch.runtime.tile_store import HDF5TileStore, MemoryTileStore
 from terrain_diffusion_tpu_torch.runtime.window import TensorWindow
 
 
 class InfiniteTensor:
     def __init__(self, f, output_window: TensorWindow, *, args: tuple = (),
                  args_windows: tuple = (), batch_buckets=(1,),
-                 tile_store: MemoryTileStore, tensor_id: str, device):
+                 tile_store: MemoryTileStore | HDF5TileStore, tensor_id: str, device,
+                 shape=None):
         self.f = f
+        # per dim, its extent where it is bounded (the channel dim), else None
+        self.shape = tuple(shape) if shape is not None else (None,) * len(output_window.size)
         self.output_window = output_window
         self.args = tuple(args)
         self.args_windows = tuple(args_windows)
@@ -45,10 +52,38 @@ class InfiniteTensor:
         self.device = torch.device(device)
 
     # ------------------------------------------------------------------
+    def __getitem__(self, key) -> np.ndarray:
+        """``t[:, i0:i1, j0:j1]``: the region as a host float32 array, as the
+        JAX package returns it.  ``:`` needs a bounded dim; an unbounded one
+        takes explicit start and stop coordinates (no wrap-around)."""
+        if not isinstance(key, tuple):
+            key = (key,)
+        if len(key) != len(self.shape):
+            raise IndexError(f"need a {len(self.shape)}-d index")
+        ranges = []
+        for extent, k in zip(self.shape, key):
+            if isinstance(k, slice):
+                start, stop = k.start, k.stop
+                if start is None and stop is None and extent is not None:
+                    start, stop = 0, extent
+                if start is None or stop is None or k.step not in (None, 1):
+                    raise IndexError("unbounded dims need explicit start:stop coordinates")
+                ranges.append((int(start), int(stop)))
+            else:
+                ranges.append((int(k), int(k) + 1))
+        with torch.no_grad():  # inference: the stage forwards take the kernels
+            return self.read(ranges).cpu().numpy()
+
     def read(self, ranges) -> torch.Tensor:
         """Summed window contributions over `ranges` ((start, stop) per dim)."""
         ensure_regions_multi([(self, [ranges])])
         return self._assemble(ranges)
+
+    def clear_cache(self):
+        """Drop this tensor's windows and its parents' from the store."""
+        self.tile_store.clear(self.tensor_id)
+        for a in self.args:
+            a.clear_cache()
 
     # ------------------------------------------------------------------
     def _contains(self, idx) -> bool:
@@ -98,6 +133,11 @@ class InfiniteTensor:
         if tuple(out.shape) != want:
             raise RuntimeError(f"window fn of {self.tensor_id} returned "
                                f"{tuple(out.shape)}, expected {want}")
+        if self.tile_store.host:  # float32 whatever the compute type, as JAX stores
+            host = out.float().cpu().numpy()
+            for i, idx in enumerate(chunk):
+                self.tile_store.put(self.tensor_id, idx, host[i])
+            return
         for i, idx in enumerate(chunk):
             # own storage per window, so eviction frees what it accounts
             self.tile_store.put(self.tensor_id, idx, out[i].clone())
@@ -110,6 +150,8 @@ class InfiniteTensor:
             if t is None:
                 raise RuntimeError(f"window {idx} of {self.tensor_id} unavailable "
                                    "after recompute (tile cache too small?)")
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t).to(self.device)
         return t
 
     def _assemble(self, ranges) -> torch.Tensor:

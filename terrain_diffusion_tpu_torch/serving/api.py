@@ -9,7 +9,9 @@
 
 ``scale > 1`` fetches the padded native region and upsamples bilinearly.
 ``--threaded`` accepts concurrent clients and coalesces their tile requests
-into shared stage batches (``serving/coalesce.py``).
+into shared stage batches (``serving/coalesce.py``).  ``--caching-strategy
+indirect [--hdf5-file F]`` serves from (and persists to) an HDF5 world file,
+a temporary one without ``--hdf5-file``.
 
 Run:
     python -m terrain_diffusion_tpu_torch.serving.api <model_path> --device cuda
@@ -51,10 +53,14 @@ def _get_pipeline():
             cfg["model_path"], seed=cfg.get("seed"),
             latents_batch_size=cfg.get("latents_batch_size", 4),
             log_mode=cfg.get("log_mode", "verbose"), dtype=cfg.get("dtype"),
+            caching_strategy=cfg.get("caching_strategy", "direct"),
             cache_limit=cfg.get("cache_limit"), device=cfg.get("device", "cuda"),
             **cfg.get("kwargs", {}))
     if pipe.tile_store is None:
-        pipe.bind()
+        if pipe.caching_strategy == "direct":
+            pipe.bind(hdf5_file=cfg.get("hdf5_file"))
+        else:
+            pipe.bind(cfg.get("hdf5_file") or "TEMP")
     if cfg.get("coalesce"):
         from terrain_diffusion_tpu_torch.serving.coalesce import CoalescedPipeline
 
@@ -166,6 +172,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Terrain API server (PyTorch port).")
     ap.add_argument("model_path")
     ap.add_argument("--device", default="cuda", help="--device cpu runs on the CPU")
+    ap.add_argument("--caching-strategy", choices=["indirect", "direct"], default="direct",
+                    help="'indirect' keeps the world's windows in an HDF5 file (needs h5py)")
+    ap.add_argument("--hdf5-file", default=None,
+                    help="the world file of indirect caching (default: a temporary file)")
     ap.add_argument("--cache-size", default="100M")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--batch-size", default="1,4")
@@ -183,7 +193,11 @@ def main(argv=None):
                     help="additional key=value pipeline kwargs")
     args = ap.parse_args(argv)
     check_device(ap, args.device)
-    configure(model_path=args.model_path, device=args.device,
+    hdf5_file = args.hdf5_file
+    if args.caching_strategy == "indirect" and hdf5_file is None:
+        hdf5_file = "TEMP"
+    configure(model_path=args.model_path, device=args.device, hdf5_file=hdf5_file,
+              caching_strategy=args.caching_strategy,
               cache_limit=parse_cache_size(args.cache_size), seed=args.seed,
               latents_batch_size=parse_batch_sizes(args.batch_size),
               log_mode=args.log_mode, dtype=None if args.dtype == "fp32" else args.dtype,

@@ -96,6 +96,10 @@ class App:
             return fn
         return deco
 
+    def routes(self) -> list[str]:
+        """Registered paths (introspection and tests)."""
+        return sorted({p for (_m, p) in self._routes})
+
     def get(self, path: str):
         return self.route(path, methods=("GET",))
 

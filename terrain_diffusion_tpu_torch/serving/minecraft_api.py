@@ -461,8 +461,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Minecraft terrain API server (PyTorch port).")
     ap.add_argument("model_path")
     ap.add_argument("--caching-strategy", choices=["indirect", "direct"], default="direct",
-                    help="'indirect' (the HDF5 tile store) is not ported")
-    ap.add_argument("--hdf5-file", default=None, help="not ported")
+                    help="'indirect' keeps the world's windows in an HDF5 file (needs h5py)")
+    ap.add_argument("--hdf5-file", default=None,
+                    help="the world file of indirect caching (default: a temporary file)")
     ap.add_argument("--cache-size", default="100M")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--batch-size", default="1,4")

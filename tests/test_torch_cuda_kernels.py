@@ -647,3 +647,77 @@ def test_vae_in_conv(dev, dt, n, h, w):
                                        wt.double().cpu().permute(3, 2, 0, 1),
                                        padding=1).permute(0, 2, 3, 1)
     _check_any(got, fb.conv3x3_reference(x, wt), exact, dt)
+
+
+def test_explorer_detail_raw_through_the_kernels(dev, monkeypatch):
+    """The explorer's /api/detail_raw on a world of small seeded models with
+    decoder tiles of 512 (the decoder's blocks, in conv and head on the
+    kernels, the base midblock on the attention kernel) against the same
+    world with every block, conv and attention on the plain path, on the
+    card: the decoder stage's residual over the region within 1e-4 relative,
+    the int16 elevation on the wire within 1 m (floor can flip at an integer
+    boundary), the temperature within 1e-4 relative."""
+    import copy
+    import io
+
+    from terrain_diffusion_tpu_torch.nn import edm_unet, layers
+    from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+    from terrain_diffusion_tpu_torch.serving.explorer import server as explorer
+
+    common = dict(layers_per_block=1, attn_resolutions=(), concat_balance=0.5,
+                  fourier_scale="pos", noise_emb_dims=16, logvar_channels=8)
+    cfgs = [dict(image_size=16, in_channels=11, out_channels=6, model_channels=16,
+                 model_channel_mults=(1,), midblock_attention=False,
+                 conditional_inputs=tuple(("float", 8, 0.2) for _ in range(5)), **common),
+            dict(image_size=64, in_channels=5, out_channels=5, model_channels=16,
+                 model_channel_mults=(1, 2), midblock_attention=True,
+                 conditional_inputs=(("tensor", 58, 1.0),),
+                 block_kwargs={"channels_per_head": 16, "attention_impl": "pallas"}, **common),
+            dict(image_size=512, in_channels=5, out_channels=1, model_channels=16,
+                 model_channel_mults=(1, 2), midblock_attention=False, conditional_inputs=(),
+                 **common)]
+    g = torch.Generator().manual_seed(5)
+    models = [EDMUnet2D(EDMUnetConfig(**c), device="cpu", generator=g) for c in cfgs]
+    with torch.no_grad():
+        for m in models:
+            for name, p in m.named_parameters():
+                if name.endswith("emb_gain"):
+                    p.fill_(0.3)
+                elif name == "out_gain":
+                    p.fill_(1.0)
+
+    def detail_raw(world):
+        explorer.configure(pipeline=world)
+        environ = {"REQUEST_METHOD": "GET", "PATH_INFO": "/api/detail_raw",
+                   "QUERY_STRING": "ci=0&cj=0&detail_size=512&pan_i=37&pan_j=-11",
+                   "wsgi.input": io.BytesIO(b""), "CONTENT_LENGTH": "0"}
+        out = {}
+        body = b"".join(explorer.app.wsgi(environ, lambda s, h: out.update(s=s, h=dict(h))))
+        assert out["s"].startswith("200") and out["h"]["X-Height"] == "512"
+        n = 512 * 512
+        residual = world.residual[:, 37 - 300:37 + 300, -11 - 300:-11 + 300]
+        return (np.frombuffer(body[:2 * n], "<i2").astype(np.int32),
+                np.frombuffer(body[2 * n:], "<f4"), residual)
+
+    cuda_lib.reset_launch_counts()
+    kern = WorldPipeline(seed=11, device=dev).set_models(*copy.deepcopy(models)).bind()
+    got = detail_raw(kern)
+    assert fb.fused_block.launches > 0 and fb.conv3x3.launches > 0
+    assert attention.fused_pixelnorm_attention.launches > 0
+    cuda_lib.reset_launch_counts()
+    monkeypatch.setattr(layers, "FUSED_MIN_PIXELS", 1 << 40)
+    monkeypatch.setattr(edm_unet, "FUSED_MIN_PIXELS", 1 << 40)
+    plain_models = copy.deepcopy(models)
+    for m in plain_models[1].modules():
+        if isinstance(m, layers.UNetBlock):
+            m.attention_impl = "xla"
+    plain = WorldPipeline(seed=11, device=dev).set_models(*plain_models).bind()
+    want = detail_raw(plain)
+    assert fb.fused_block.launches == fb.conv3x3.launches == 0
+    assert attention.fused_pixelnorm_attention.launches == 0
+    assert _rel(torch.from_numpy(got[2]), torch.from_numpy(want[2])) < TOL
+    assert np.abs(got[0] - want[0]).max() <= 1 and got[0].std() > 0
+    assert _rel(torch.from_numpy(got[1].copy()), torch.from_numpy(want[1].copy())) < TOL
+    explorer.configure()
