@@ -99,7 +99,8 @@ Phases, each of which exits non-zero on failure:
    diffusion run's saved model as teacher and a random ``decoder_32-3``
    guide, 4 steps; ``diffusion_192-3.cfg`` at its batch 48, 64x64 crops,
    dropout 0.1, 3 steps.  Each run prints ms per step (steps 3 on), images/s,
-   peak GiB, loss and grad_norm (finite), FLOPs per step and the bound at 67
+   peak GiB (the run's own, above what the earlier phases hold), loss and
+   grad_norm (finite), FLOPs per step and the bound at 67
    TFLOP/s, and its kernel launches: the consistency run's equal its steps x
    (teacher + guide top-level blocks, in conv and head), the others launch
    none.  Then one diffusion and one consistency step at b2 on the card (the
@@ -107,7 +108,23 @@ Phases, each of which exits non-zero on failure:
    batch and draws: loss, grad_norm, F_theta_grad and the updated weights
    within 1e-4 relative.  The kernel phase holds the training shapes too:
    the 64- and 32-channel top-level blocks and the in conv and head at
-   128x128 b16.
+   128x128 b16.  Then the rest of the trainers: ``autoencoder_x8.cfg`` at
+   its full width and crop 512, its batch the largest of 16 / 8 / 4 whose
+   peak (at a one-step b2 probe's peak per image) stays under 70 GiB (its
+   16 does not fit in float32), 5 steps, then ``evaluate`` on two 512x512 b2
+   batches and ``save-model --sigma-rel 0.1`` through the command group
+   with a round trip of the saved VAE, each launching the blocks and in
+   conv ``vae_launches`` predicts, all in float32; its first step card vs
+   CPU (b2 at 64x64, same init, batch and generator) within 1e-4;
+   ``autoencoder_x8_squared.cfg`` at its batch 64, crop 128, 4 steps;
+   ``diffusion_coarse.cfg`` at its batch 256, 16x16, 5 steps; the
+   perceptron (4-32-32-4) on a separable climate set, 250 steps, held-out
+   accuracy over 0.9; the GAN in inject mode with R1 every other step,
+   64-channel U-Net generator and discriminator, b16 144x144 cropped to
+   128x128, 5 steps (its discriminator phase's no_grad fakes launch the
+   generator's top-level blocks, in conv and head each step), then FID with
+   the EMA weights on two b16 batches (the same launches a batch).  These
+   runs' FLOPs come from hooks on every MPConv of a plain forward.
 9. evaluation (``terrain_diffusion_tpu_torch.evaluation``, the VAE): a VAE
    at ``autoencoder_x8.cfg``'s full width (seeded random weights) encodes
    and decodes 512x512 b2 in float32 on the card and on the CPU, bar 1e-4
@@ -154,7 +171,8 @@ them by kernel and type.
 
 The last lines are a JSON kernel report (a row per kernel and type:
 launches from the Minecraft phase in float32 and bf16 and from the fp16
-forwards in fp16, ``training_launches`` from the consistency run,
+forwards in fp16, ``training_launches`` from the consistency run, the
+autoencoder's evaluate and saved-model round trip and the GAN run and FID,
 ``evaluation_launches`` from the evaluation phase, which must be positive
 for the three float32 kernels, ``surface_launches`` from the surface phase,
 which must be positive for the float32 and bf16 kernels), the card's name
@@ -1285,45 +1303,88 @@ UNUSED_SECTIONS = ("val_dataset", "sweep_dataset", "results_dataset")  # not rea
 
 class MemoryDataset:
     """Training items made from a seed with numpy, in the item layout of the
-    port's HDF5 datasets (no h5py on the card): ``decoder`` as
+    port's datasets (no h5py on the card): ``decoder`` as
     ``H5DecoderTerrainDataset`` gives them (image = the residual crop times
     sigma_data, (crop, crop, 1); cond_img = the nearest-up x8 latent sample,
     (crop, crop, 4)), ``latents`` as ``H5LatentsDataset`` (image = 4 latent
-    channels + lowfreq, (crop, crop, 5); cond_inputs = [the 58-dim vector])."""
+    channels + lowfreq, (crop, crop, 5); cond_inputs = [the 58-dim vector]),
+    ``autoencoder`` as ``H5AutoencoderDataset`` and the GAN's raster crops
+    (image, (crop, crop, 1)), ``coarse`` as ``CoarseDataset`` (image, (crop,
+    crop, 6); cond_img, (crop, crop, 5); cond_inputs = 5 scalars
+    log(tan(t) / 8)), and ``biome``, the perceptron's separable climate set
+    of JAX's convergence test (image = a 4-vector, label = hot / cold x wet
+    / dry)."""
 
     def __init__(self, kind, crop_size, seed, n_items=64, sigma_data=0.5):
         import numpy as np
 
         rng = np.random.default_rng(seed)
         self.kind, self.n = kind, n_items
+        self.cond = self.cond_inputs = None
         if kind == "decoder":
             lat = rng.standard_normal((n_items, crop_size // 8, crop_size // 8, 4), np.float32)
             self.cond = np.repeat(np.repeat(lat, 8, axis=1), 8, axis=2)
             self.image = rng.standard_normal((n_items, crop_size, crop_size, 1),
                                              np.float32) * sigma_data
-        else:
+        elif kind == "latents":
             self.image = rng.standard_normal((n_items, crop_size, crop_size, 5),
                                              np.float32) * sigma_data
-            self.cond = rng.standard_normal((n_items, 58), np.float32)
+            self.cond_inputs = [rng.standard_normal((n_items, 58), np.float32)]
+        elif kind == "autoencoder":
+            self.image = rng.standard_normal((n_items, crop_size, crop_size, 1),
+                                             np.float32) * sigma_data
+        elif kind == "coarse":
+            self.image = rng.standard_normal((n_items, crop_size, crop_size, 6),
+                                             np.float32) * sigma_data
+            self.cond = rng.standard_normal((n_items, crop_size, crop_size, 5), np.float32)
+            t = np.arctan(np.exp(10 * rng.random((5, n_items)) - 5))
+            self.cond_inputs = list(np.log(np.tan(t) / 8).astype(np.float32))
+        else:  # biome
+            self.image, self.label = biome_set(np, rng, n_items)
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, i):
         i %= self.n  # the evaluation draws indices up to 2 ** 31
-        if self.kind == "decoder":
-            return {"image": self.image[i], "cond_img": self.cond[i], "cond_inputs": [],
-                    "path": f"memory/{i}"}
-        return {"image": self.image[i], "cond_inputs": [self.cond[i]], "path": f"memory/{i}"}
+        if self.kind == "biome":
+            return {"image": self.image[i], "label": self.label[i]}
+        item = {"image": self.image[i], "path": f"memory/{i}",
+                "cond_inputs": [c[i] for c in self.cond_inputs or ()]}
+        if self.cond is not None:
+            item["cond_img"] = self.cond[i]
+        return item
+
+
+def biome_set(np, rng, n):
+    """Climate 4-vectors and 4 classes from two thresholds (hot / cold x
+    wet / dry), linearly separable given the inputs."""
+    temp = rng.uniform(-15, 35, n).astype(np.float32)
+    precip = rng.uniform(0, 2000, n).astype(np.float32)
+    t_std = rng.uniform(0, 400, n).astype(np.float32)
+    p_cv = rng.uniform(0, 150, n).astype(np.float32)
+    labels = (2 * (temp > 10) + (precip > 1000)).astype(np.int64)
+    x = np.stack([temp / 20.0, precip / 1000.0, t_std / 200.0, p_cv / 75.0], axis=-1)
+    return x, labels
+
+
+MEMORY_KINDS = ("decoder", "latents", "autoencoder", "coarse", "biome")
+
+
+def memory_dataset(kind, crop, **extra):
+    """The ``train_dataset`` override of an in-memory dataset."""
+    section = {"@dataset": "chip_smoke_" + kind, "crop_size": crop, "seed": SEED, **extra}
+    return "train_dataset=" + json.dumps(section)
 
 
 def register_memory_datasets():
     from terrain_diffusion_tpu_torch.training.registry import build_registry, dataset_registry
 
     build_registry()
-    for kind in ("decoder", "latents"):
+    for kind in MEMORY_KINDS:
         dataset_registry.register(f"chip_smoke_{kind}")(
-            lambda crop_size, seed, _k=kind: MemoryDataset(_k, crop_size, seed))
+            lambda crop_size=0, seed=0, n_items=64, _k=kind: MemoryDataset(_k, crop_size, seed,
+                                                                          n_items))
 
 
 def unet_forward_flops(model, n, h, w) -> float:
@@ -1354,53 +1415,62 @@ def top_level_launches(model) -> dict:
     return {"fused_block": n, "conv3x3": 2, "attention": 0}
 
 
-def run_config(torch, cuda_lib, fb, attn, rel, save_dir, overrides, steps, label):
-    """``run_training`` on a shipped config with ``overrides``, log_every=1;
-    returns (trainer, the metrics lines, launches, peak GiB)."""
+def run_config(torch, cuda_lib, fb, attn, rel, save_dir, overrides, steps, label,
+               finite=("loss", "grad_norm")):
+    """``run_training`` on a shipped config (a path, or a config dict) with
+    ``overrides``, log_every=1; returns (trainer, state, the metrics lines,
+    launches, peak GiB), each line's ``finite`` metrics checked finite.  The
+    peak is the run's own: the device memory allocated at its peak less what
+    was allocated when it started (the earlier phases' models)."""
     from terrain_diffusion_tpu_torch.training.registry import apply_overrides, load_config
     from terrain_diffusion_tpu_torch.training.train import run_training
 
-    config = load_config(os.path.join(ROOT, rel))
+    config = copy.deepcopy(rel) if isinstance(rel, dict) else load_config(os.path.join(ROOT, rel))
     for section in UNUSED_SECTIONS:
         config.pop(section, None)
     apply_overrides(config, [f"logging.save_dir={json.dumps(save_dir)}", *overrides])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer, _, counters = run_training(config, max_steps=steps, log_every=1, device="cuda")
+    trainer, state, counters = run_training(config, max_steps=steps, log_every=1,
+                                            device="cuda")
     wall = time.perf_counter() - t0
     launches = {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches,
                 "attention": attn.fused_pixelnorm_attention.launches}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
     with open(os.path.join(save_dir, "metrics.jsonl")) as f:
-        lines = [json.loads(ln) for ln in f if '"loss"' in ln]
+        lines = [ln for ln in map(json.loads, f) if "step_ms" in ln]
     check(counters["step"] == steps and len(lines) == steps,
           f"{label}: {counters['step']} steps, {len(lines)} metrics lines, not {steps}")
     for ln in lines:
-        check(math.isfinite(ln["loss"]) and math.isfinite(ln["grad_norm"]),
-              f"{label}: step {ln['step']} loss {ln['loss']} grad_norm {ln['grad_norm']}")
+        check(all(math.isfinite(ln[k]) for k in finite),
+              f"{label}: step {ln['step']} " + ", ".join(f"{k} {ln[k]}" for k in finite))
     print(f"[train] {label}: run_training {steps} steps in {wall:.1f} s (model build, data and "
-          f"checkpoint included)", flush=True)
-    return trainer, lines, launches, peak
+          f"checkpoint included); peak {peak:.2f} GiB above the {held:.2f} GiB allocated before",
+          flush=True)
+    return trainer, state, lines, launches, peak
 
 
-def report_run(label, lines, launches, peak, batch, crop, step_flops):
+def report_run(label, lines, launches, peak, batch, shape, step_flops, keys=("loss", "grad_norm"),
+               card=""):
     steady = [ln["step_ms"] for ln in lines[2:]]
     ms = sum(steady) / len(steady)
     bound = step_flops / F32_FLOPS * 1e3
     steps = len(lines)
     per_step = {k: v / steps for k, v in launches.items()}
 
-    def series(key, fmt):
-        return ", ".join(format(ln[key], fmt) for ln in lines)
+    def series(key, fmt):  # every step's value, or the first and last 3 of a long run
+        vals = [format(ln[key], fmt) for ln in lines]
+        return ", ".join(vals if len(vals) <= 10 else vals[:3] + ["..."] + vals[-3:])
 
-    print(f"[train] {label}: b{batch} {crop}x{crop}: {ms:.1f} ms/step over steps 3-{steps} "
-          f"(all steps {series('step_ms', '.1f')}), {batch / ms * 1e3:.1f} images/s, "
-          f"peak {peak:.2f} GiB, loss {series('loss', '.4g')}, grad_norm "
-          f"{series('grad_norm', '.4g')}, {step_flops / 1e12:.2f} TFLOP/step, bound "
-          f"{bound:.1f} ms at 67 TFLOP/s ({bound / ms:.1%}), kernel launches/step {per_step}",
-          flush=True)
+    print(f"[train] {label}: {card + ': ' if card else ''}b{batch} {shape}: {ms:.1f} ms/step "
+          f"over steps 3-{steps} (all steps {series('step_ms', '.1f')}), "
+          f"{batch / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB, "
+          + ", ".join(f"{k} {series(k, '.4g')}" for k in keys)
+          + f", {step_flops / 1e12:.2f} TFLOP/step, bound {bound:.1f} ms at 67 TFLOP/s "
+          f"({bound / ms:.1%}), kernel launches/step {per_step}", flush=True)
     return dict(ms=ms, images_s=batch / ms * 1e3, peak_gib=peak, tflop=step_flops / 1e12,
                 bound_ms=bound, launches=launches)
 
@@ -1508,33 +1578,30 @@ def teacher_guide_ms(torch, teacher, guide, n=16):
     return min(turns["kernels"]), min(turns["plain"]), turns
 
 
-def training_phase(torch, np, cuda_lib, fb, attn, dev, work_dir):
+def training_phase(torch, np, cuda_lib, fb, attn, dev, work_dir, card):
     """The training path through ``run_training`` on the shipped configs,
     datasets in memory: the diffusion decoder (64-3, b32, 128x128, random
     init, 6 steps), its consistency distillation (b16, the diffusion run's
     saved model as teacher, a random 32-3 guide, 4 steps: the teacher and
     guide forwards launch the block and conv kernels, the student none),
     and the base model (192-3, b48, 64x64, dropout 0.1, 3 steps, no kernel);
-    then one diffusion and one consistency step card vs CPU.  Returns the
-    consistency run's launches and a summary per run."""
+    then one diffusion and one consistency step card vs CPU; then
+    ``rest_of_training``.  Returns the kernel launches of every run (all
+    float32) and a summary per run."""
     from terrain_diffusion_tpu_torch.nn import torch_compat
     from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
 
     register_memory_datasets()
     summary = {}
 
-    def dataset(kind, crop):
-        section = {"@dataset": "chip_smoke_" + kind, "crop_size": crop, "seed": SEED}
-        return "train_dataset=" + json.dumps(section)
-
     save = os.path.join(work_dir, "diffusion_decoder")
-    trainer, lines, launches, peak = run_config(
-        torch, cuda_lib, fb, attn, DECODER_CFG, save, [dataset("decoder", 128)], 6,
+    trainer, _, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, DECODER_CFG, save, [memory_dataset("decoder", 128)], 6,
         "diffusion decoder 64-3")
     teacher_path = os.path.join(save, "latest_checkpoint", "saved_model")
     fwd = unet_forward_flops(trainer.model, 32, 128, 128)
-    summary["diffusion"] = report_run("diffusion decoder 64-3", lines, launches, peak, 32, 128,
-                                      3 * fwd)
+    summary["diffusion"] = report_run("diffusion decoder 64-3", lines, launches, peak, 32,
+                                      "128x128", 3 * fwd)
     check(launches == {"fused_block": 0, "conv3x3": 0, "attention": 0},
           f"the diffusion run launched kernels: {launches}")
     del trainer
@@ -1545,16 +1612,16 @@ def training_phase(torch, np, cuda_lib, fb, attn, dev, work_dir):
     guide_path = os.path.join(work_dir, "guide_32-3")
     torch_compat.save_model(guide, guide_path)
     save = os.path.join(work_dir, "consistency_decoder")
-    trainer, lines, launches, peak = run_config(
+    trainer, _, lines, launches, peak = run_config(
         torch, cuda_lib, fb, attn, CONSISTENCY_CFG, save,
-        [dataset("decoder", 128), f"model.main_path={json.dumps(teacher_path)}",
+        [memory_dataset("decoder", 128), f"model.main_path={json.dumps(teacher_path)}",
          f"model.guide_path={json.dumps(guide_path)}"], 4, "consistency decoder 64-3")
     student_fwd = unet_forward_flops(trainer.model, 16, 128, 128)
     teacher_fwd = unet_forward_flops(trainer.teacher, 16, 128, 128)
     guide_fwd = unet_forward_flops(trainer.guide, 16, 128, 128)
     step_flops = teacher_fwd + guide_fwd + 4 * student_fwd
     summary["consistency"] = run = report_run("consistency decoder 64-3 (+ guide 32-3)", lines,
-                                              launches, peak, 16, 128, step_flops)
+                                              launches, peak, 16, "128x128", step_flops)
     per_step = {k: a + b for (k, a), b in zip(top_level_launches(trainer.teacher).items(),
                                              top_level_launches(trainer.guide).values())}
     want = {k: v * len(lines) for k, v in per_step.items()}
@@ -1575,20 +1642,324 @@ def training_phase(torch, np, cuda_lib, fb, attn, dev, work_dir):
     del trainer
 
     save = os.path.join(work_dir, "diffusion_base")
-    trainer, lines, launches, peak = run_config(
-        torch, cuda_lib, fb, attn, BASE_CFG, save, [dataset("latents", 64)], 3,
+    trainer, _, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, BASE_CFG, save, [memory_dataset("latents", 64)], 3,
         "diffusion base 192-3")
     check(trainer.model.enc["512x512_block0"].dropout == 0.1, "the base run has no dropout")
     fwd = unet_forward_flops(trainer.model, 48, 64, 64)
     summary["base"] = report_run("diffusion base 192-3 (dropout 0.1)", lines, launches, peak,
-                                 48, 64, 3 * fwd)
+                                 48, "64x64", 3 * fwd)
     check(launches == {"fused_block": 0, "conv3x3": 0, "attention": 0},
           f"the base run launched kernels: {launches}")
     del trainer
     torch.cuda.empty_cache()
 
     card_vs_cpu_steps(torch, np, cuda_lib, fb, teacher, guide_cpu)
-    return want, summary
+    rest, by_dtype = rest_of_training(torch, np, cuda_lib, fb, attn, work_dir, card)
+    summary.update(rest)
+    launches = dict(want)
+    for (kernel, _dt), n in by_dtype.items():  # all float32 (checked)
+        launches[kernel] += n
+    return launches, summary
+
+# ---------------------------------------------------------------------------
+# the rest of training: autoencoder, coarse diffusion, perceptron, GAN
+# ---------------------------------------------------------------------------
+
+AE_SQUARED_CFG = "configs/autoencoder/autoencoder_x8_squared.cfg"
+COARSE_CFG = "configs/diffusion_coarse/diffusion_coarse.cfg"
+AE_PEAK_LIMIT_GIB = 70.0  # autoencoder_x8.cfg's 512x512 run: the largest batch under this
+AE_BATCHES = (16, 8, 4)   # the config's 16, then halved
+AE_KEYS = ("loss", "grad_norm", "mae", "kl", "perceptual")
+PERCEPTRON_CONFIG = {  # JAX's convergence test's perceptron, on its separable set
+    "trainer": {"@trainer": "perceptron"},
+    "logging": {"save_epochs": 0},
+    "training": {"batch_size": 64, "seed": SEED},
+    "model": {"@model": "perceptron", "in_dim": 4, "out_dim": 4, "hidden_dims": [32, 32]},
+    "lr_sched": {"@lr_sched": "constant", "lr": 3e-3},
+}
+GAN_UNET = {"@model": "unet", "image_size": 144, "out_channels": 1, "model_channels": 64,
+            "model_channel_mults": [1, 2, 2], "layers_per_block": 1, "attn_resolutions": [],
+            "midblock_attention": False}
+GAN_CONFIG = {  # inject mode, R1 every other step, 144x144 images cropped to 128x128
+    "trainer": {"@trainer": "gan"},
+    "logging": {"save_epochs": 0},
+    "training": {"batch_size": 16, "seed": SEED, "latent_channels": 1, "crop_size": 128,
+                 "mode": "inject", "r_gamma": 0.1, "r_interval": 2, "burnin_steps": 4,
+                 "kl_weight": 0.01, "range_weight": 1.0, "lr_warmup_factor": 0.1},
+    "g_optimizer": {"kwargs": {"betas": [0.0, 0.99]}},
+    "d_optimizer": {"kwargs": {"betas": [0.0, 0.99]}},
+    "model": {**GAN_UNET, "in_channels": 2},  # concat(noised real, z)
+    "discriminator": {**GAN_UNET, "in_channels": 1},
+    "lr_sched": {"@lr_sched": "constant", "lr": 1e-4},
+}
+GAN_KEYS = ("d_loss", "g_loss", "r_loss", "d_grad_norm", "g_grad_norm")
+
+
+def read_launches(fb, attn) -> tuple:
+    """The launch counts by kernel, and by (kernel, type)."""
+    fns = {"fused_block": fb.fused_block, "conv3x3": fb.conv3x3,
+           "attention": attn.fused_pixelnorm_attention}
+    by_dtype = {(k, dt): n for k, f in fns.items() for dt, n in f.launches_by_dtype.items()}
+    return {k: f.launches for k, f in fns.items()}, by_dtype
+
+
+def forward_flops(torch, model, fn) -> float:
+    """FLOPs of every conv and linear that ``fn`` runs through ``model`` (2 x
+    weights x output pixels), counted by hooks on its MPConvs on the plain
+    path (the cutover raised out of reach) under no_grad."""
+    from terrain_diffusion_tpu_torch.nn import edm_unet, layers
+
+    total = [0]
+
+    def hook(mod, _args, out):
+        total[0] += 2 * mod.weight.numel() * (out.numel() // out.shape[-1])
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, layers.MPConv)]
+    cutover = layers.FUSED_MIN_PIXELS
+    layers.FUSED_MIN_PIXELS = edm_unet.FUSED_MIN_PIXELS = 1 << 62
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        layers.FUSED_MIN_PIXELS = edm_unet.FUSED_MIN_PIXELS = cutover
+        for h in hooks:
+            h.remove()
+    return float(total[0])
+
+
+def vae_roundtrip_flops(torch, vae, size) -> float:
+    x = torch.zeros((1, size, size, 1), device="cuda")
+    return forward_flops(torch, vae, lambda: vae.decode(vae.preencode(x)[0]))
+
+
+def check_float32(by_dtype, label):
+    import torch
+
+    check(all(dt == torch.float32 for (_k, dt), n in by_dtype.items() if n),
+          f"{label}: a launch in another type than float32: {by_dtype}")
+
+
+def autoencoder_card_vs_cpu(torch, np):
+    """The first AutoencoderTrainer step of autoencoder_x8.cfg (full width,
+    a constant lr of 1e-3 where the config warms up from 0) on the card and
+    on the CPU, same init, batch (b2 at 64x64, small enough for the CPU) and
+    generator: loss, its terms, grad_norm and the weights within TRAIN_TOL."""
+    from terrain_diffusion_tpu_torch.nn.edm_autoencoder import EDMAutoencoderConfig
+    from terrain_diffusion_tpu_torch.training import lr_sched as ls
+    from terrain_diffusion_tpu_torch.training.registry import ModelSpec, load_config
+    from terrain_diffusion_tpu_torch.training.trainers.autoencoder import AutoencoderTrainer
+
+    config = load_config(os.path.join(ROOT, VAE_CFG))
+    spec = ModelSpec(EDMAutoencoderConfig.from_dict(model_config(VAE_CFG)))
+    rng = np.random.default_rng(SEED + 22)
+    batch = {"image": rng.standard_normal((2, 64, 64, 1), np.float32) * 0.5}
+    results = {}
+    for dev in ("cuda", "cpu"):
+        trainer = AutoencoderTrainer(config, {"model": spec,
+                                              "lr_sched": ls.ConstantLRScheduler(1e-3)},
+                                     device=dev)
+        state = trainer.init_state(torch.Generator().manual_seed(SEED + 23))
+        metrics = trainer.train_step(state, batch, torch.Generator().manual_seed(SEED + 24),
+                                     {"step": 0, "seen": 0})
+        results[dev] = metrics, {k: v.detach().cpu() for k, v in trainer.params().items()}
+    (got, w_got), (want, w_want) = results["cuda"], results["cpu"]
+    errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in AE_KEYS}
+    errs["weights"] = max(rel_err(w_got[k], w) for k, w in w_want.items())
+    print("[train] card vs CPU, the first autoencoder_x8 step b2 64x64: "
+          + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()), flush=True)
+    check(all(v < TRAIN_TOL for v in errs.values()),
+          f"autoencoder step card vs CPU: {errs} (bar {TRAIN_TOL})")
+
+
+def autoencoder_x8_run(torch, np, cuda_lib, fb, attn, work_dir, card) -> tuple:
+    """autoencoder_x8.cfg at its full width and crop 512: the batch from a
+    one-step probe at b2 (the largest of 16 / 8 / 4 whose peak, at the
+    probe's peak per image, stays under AE_PEAK_LIMIT_GIB), 5 steps (no
+    kernel), then ``evaluate`` on two 512x512 b2 batches and ``save-model
+    --sigma-rel 0.1`` with a VAE round trip of the saved model, each
+    launching the blocks and in conv ``vae_launches`` predicts, in
+    float32.  Returns the run's summary and the launches by (kernel, type)."""
+    from terrain_diffusion_tpu_torch import __main__ as cli_main
+    from terrain_diffusion_tpu_torch.nn import torch_compat
+
+    *_, peak2 = run_config(torch, cuda_lib, fb, attn, VAE_CFG, os.path.join(work_dir, "ae_probe"),
+                           [memory_dataset("autoencoder", 512), "training.batch_size=2"], 1,
+                           "autoencoder_x8 probe b2 512x512", finite=AE_KEYS)
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    per_image = peak2 / 2
+    fits = [b for b in AE_BATCHES if held + b * per_image < AE_PEAK_LIMIT_GIB]
+    check(bool(fits), f"autoencoder_x8: {per_image:.2f} GiB an image, no batch of {AE_BATCHES} "
+                      f"under {AE_PEAK_LIMIT_GIB} GiB")
+    batch, steps = fits[0], 5
+    print(f"[train] autoencoder_x8: {card}: probe peak {peak2:.2f} GiB at b2 = {per_image:.2f} GiB "
+          f"an image: the config's batch 16 would need about {16 * per_image:.1f} GiB; batch "
+          f"{batch} (the largest of {AE_BATCHES} under {AE_PEAK_LIMIT_GIB} GiB with the "
+          f"{held:.2f} GiB already allocated)", flush=True)
+    torch.cuda.empty_cache()
+    save = os.path.join(work_dir, "autoencoder_x8")
+    trainer, state, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, VAE_CFG, save,
+        [memory_dataset("autoencoder", 512), f"training.batch_size={batch}",
+         f"ema.checkpoint_every_num_steps={steps}"], steps, f"autoencoder_x8 b{batch}",
+        finite=AE_KEYS)
+    total = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(total < AE_PEAK_LIMIT_GIB, f"autoencoder_x8 b{batch}: peak {total:.2f} GiB")
+    check(not any(launches.values()), f"the autoencoder training run launched {launches}")
+    fwd = vae_roundtrip_flops(torch, trainer.model, 512)
+    run = report_run(f"autoencoder_x8 (batch {batch} of 16)", lines, launches, peak, batch,
+                     "512x512", 3 * fwd * batch, keys=AE_KEYS[:4], card=card)
+    run.update(batch=batch, probe_gib_per_image=per_image)
+
+    enc, dec = vae_launches(trainer.model)
+    per_trip = {k: enc[k] + dec[k] for k in enc}
+    rng = np.random.default_rng(SEED + 20)
+    batches = [{"image": rng.standard_normal((2, 512, 512, 1), np.float32) * 0.5}
+               for _ in range(2)]
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.evaluate(state, batches, torch.Generator().manual_seed(SEED + 21))
+    torch.cuda.synchronize()
+    n_eval, by_eval = read_launches(fb, attn)
+    print(f"[train] autoencoder_x8 evaluate, 2 batches 512x512 b2: {json.dumps(out)} in "
+          f"{time.perf_counter() - t0:.2f} s, launches {n_eval} (2 x {per_trip})", flush=True)
+    check(all(math.isfinite(v) for v in out.values()) and set(out) >= {"val_loss", "val_mae"},
+          f"autoencoder evaluate: {out}")
+    check(n_eval == {k: 2 * v for k, v in per_trip.items()},
+          f"autoencoder evaluate launched {n_eval}, expected 2 x {per_trip}")
+    check_float32(by_eval, "autoencoder evaluate")
+    del trainer, state
+
+    ckpt = os.path.join(save, "latest_checkpoint")
+    cli_main.cli(["save-model", ckpt, "--sigma-rel", "0.1"], standalone_mode=False)
+    vae = torch_compat.load_model(os.path.join(ckpt, "saved_model_ema"), device="cuda")
+    x = torch.from_numpy(batches[0]["image"]).cuda()
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        rec = vae.decode(vae.preencode(x)[0])
+    torch.cuda.synchronize()
+    n_trip, by_trip = read_launches(fb, attn)
+    print(f"[train] save-model --sigma-rel 0.1, then the saved VAE's round trip 512x512 b2: "
+          f"launches {n_trip}", flush=True)
+    check(bool(torch.isfinite(rec).all()) and rec.shape == x.shape,
+          "the saved VAE's reconstruction is non-finite or of the wrong shape")
+    check(n_trip == per_trip, f"the saved VAE's round trip launched {n_trip}, expected {per_trip}")
+    check_float32(by_trip, "the saved VAE's round trip")
+    del vae
+    torch.cuda.empty_cache()
+    by_dtype = {k: by_eval.get(k, 0) + by_trip.get(k, 0) for k in set(by_eval) | set(by_trip)}
+    return run, by_dtype
+
+
+def gan_run(torch, np, cuda_lib, fb, attn, work_dir, card) -> tuple:
+    """The GAN in inject mode with R1 (steps 0, 2, 4): 64-channel U-Net
+    generator and discriminator, b16 144x144 cropped to 128x128, 5 steps;
+    the discriminator phase's fakes (no_grad) launch the generator's
+    top-level blocks and its in conv and head each step; then ``evaluate``
+    (FID with the EMA weights, terrain features) on two b16 batches, which
+    launches the same per batch.  Returns the summary and the launches of
+    both by (kernel, type)."""
+    steps = 5
+    trainer, state, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, GAN_CONFIG, os.path.join(work_dir, "gan"),
+        [memory_dataset("autoencoder", 144)], steps, "gan inject + R1", finite=GAN_KEYS)
+    _, by_train = read_launches(fb, attn)
+    check_float32(by_train, "the GAN run")
+    per_forward = top_level_launches(trainer.model)
+    check(launches == {k: steps * v for k, v in per_forward.items()},
+          f"the GAN run launched {launches}, expected {steps} x {per_forward}")
+    check(lines[0]["r_loss"] > 0 or lines[2]["r_loss"] > 0, "the GAN run's R1 penalty is 0")
+    g = trainer.model
+    d = trainer.discriminator
+    z144 = torch.zeros((1, 144, 144, 2), device="cuda")
+    g_fwd = forward_flops(torch, g, lambda: g(z144, torch.zeros((1,), device="cuda"), []))
+    d128 = forward_flops(torch, d, lambda: d(z144[:, :128, :128, :1],
+                                             torch.zeros((1,), device="cuda"), []))
+    d144 = forward_flops(torch, d, lambda: d(z144[..., :1], torch.zeros((1,), device="cuda"), []))
+    b = 16  # a step without R1: fakes, D fwd + bwd on 2b crops, G fwd + bwd, D fwd + bwd on b
+    step_flops = b * (g_fwd + 3 * 2 * d128 + 3 * g_fwd + 3 * d144)
+    run = report_run("gan inject + R1 (64-ch generator and discriminator)", lines, launches, peak,
+                     b, "144x144 (crops 128x128)", step_flops, keys=GAN_KEYS, card=card)
+    r1 = [ln["step_ms"] for ln in lines[2:] if (ln["step"] - 1) % 2 == 0]
+    plain = [ln["step_ms"] for ln in lines[2:] if (ln["step"] - 1) % 2 == 1]
+    run.update(r1_ms=sum(r1) / len(r1), plain_ms=sum(plain) / len(plain))
+    print(f"[train] gan: {card}: steps 3-{steps}: {run['r1_ms']:.1f} ms a step with R1, "
+          f"{run['plain_ms']:.1f} ms without ({step_flops / F32_FLOPS * 1e3 / run['plain_ms']:.1%} "
+          f"of the plain step's bound)", flush=True)
+    rng = np.random.default_rng(SEED + 31)
+    batches = [{"image": rng.standard_normal((b, 144, 144, 1), np.float32) * 0.5}
+               for _ in range(2)]
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.evaluate(state, batches, torch.Generator().manual_seed(SEED + 32))
+    torch.cuda.synchronize()
+    n_fid, by_fid = read_launches(fb, attn)
+    print(f"[train] gan evaluate (FID, EMA weights, terrain features), 2 batches 144x144 b16: "
+          f"{json.dumps(out)} in {time.perf_counter() - t0:.2f} s, launches {n_fid}", flush=True)
+    check(math.isfinite(out["val/fid"]), f"gan evaluate: {out}")
+    check(n_fid == {k: 2 * v for k, v in per_forward.items()},
+          f"gan evaluate launched {n_fid}, expected 2 x {per_forward}")
+    check_float32(by_fid, "gan evaluate")
+    return run, {k: by_train.get(k, 0) + by_fid.get(k, 0) for k in set(by_train) | set(by_fid)}
+
+
+def rest_of_training(torch, np, cuda_lib, fb, attn, work_dir, card) -> tuple:
+    """The trainers, datasets' layouts and models the earlier runs leave
+    out: autoencoder_x8.cfg (full width, crop 512, its batch cut to fit),
+    its first step card vs CPU, autoencoder_x8_squared.cfg (b64, crop 128),
+    diffusion_coarse.cfg (b256, 16x16, 128 channels), the perceptron on a
+    separable climate set, and the GAN.  Returns the summaries and the
+    kernel launches by (kernel, type)."""
+    summary = {}
+    summary["autoencoder_x8"], by_dtype = autoencoder_x8_run(torch, np, cuda_lib, fb, attn,
+                                                             work_dir, card)
+    autoencoder_card_vs_cpu(torch, np)
+
+    trainer, _, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, AE_SQUARED_CFG, os.path.join(work_dir, "ae_squared"),
+        [memory_dataset("autoencoder", 128)], 4, "autoencoder_x8_squared b64", finite=AE_KEYS)
+    check(not any(launches.values()), f"the squared autoencoder run launched {launches}")
+    fwd = vae_roundtrip_flops(torch, trainer.model, 128)
+    summary["autoencoder_x8_squared"] = report_run(
+        "autoencoder_x8_squared", lines, launches, peak, 64, "128x128", 3 * fwd * 64,
+        keys=AE_KEYS[:4], card=card)
+    del trainer
+    torch.cuda.empty_cache()
+
+    trainer, _, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, COARSE_CFG, os.path.join(work_dir, "coarse"),
+        [memory_dataset("coarse", 16, n_items=512)], 5, "diffusion_coarse b256")
+    check(not any(launches.values()), f"the coarse run launched {launches}")
+    m = trainer.model
+    x = torch.zeros((1, 16, 16, 11), device="cuda")
+    conds = [torch.zeros((1,), device="cuda")] * 5
+    fwd = forward_flops(torch, m, lambda: m(x, torch.zeros((1,), device="cuda"), conds))
+    summary["diffusion_coarse"] = report_run("diffusion_coarse", lines, launches, peak, 256,
+                                             "16x16", 3 * fwd * 256, card=card)
+    del trainer
+
+    steps = 250  # as JAX's convergence test
+    trainer, _, lines, launches, peak = run_config(
+        torch, cuda_lib, fb, attn, PERCEPTRON_CONFIG, os.path.join(work_dir, "perceptron"),
+        [memory_dataset("biome", 0, n_items=3584)], steps, "perceptron")
+    x, y = biome_set(np, np.random.default_rng(SEED + 30), 512)
+    with torch.no_grad():
+        logits = trainer.model(torch.from_numpy(x).cuda())
+    acc = float((logits.argmax(-1).cpu().numpy() == y).mean())
+    fwd = sum(2 * p.numel() for n, p in trainer.model.named_parameters() if n.endswith("weight"))
+    summary["perceptron"] = run = report_run("perceptron 4-32-32-4", lines, launches, peak, 64,
+                                             "4-vectors", 3 * fwd * 64, card=card)
+    run["held_out_acc"] = acc
+    print(f"[train] perceptron: held-out accuracy {acc:.3f} after {steps} steps", flush=True)
+    check(acc > 0.9, f"the perceptron's held-out accuracy is {acc:.3f}")
+
+    summary["gan"], by_gan = gan_run(torch, np, cuda_lib, fb, attn, work_dir, card)
+    for k, n in by_gan.items():
+        by_dtype[k] = by_dtype.get(k, 0) + n
+    torch.cuda.empty_cache()
+    return summary, by_dtype
+
 
 # ---------------------------------------------------------------------------
 # evaluation phase
@@ -2144,7 +2515,7 @@ def main():
             torch, np, cuda_lib, fb, attn, dev, world_dir, f32_tile))
         torch.cuda.empty_cache()
         train_launches, _ = timed("training", lambda: training_phase(
-            torch, np, cuda_lib, fb, attn, dev, world_dir))
+            torch, np, cuda_lib, fb, attn, dev, world_dir, card))
         torch.cuda.empty_cache()
         eval_launches = timed("evaluation", lambda: evaluation_phase(
             torch, np, cuda_lib, fb, attn, models, dev, world_dir, card))

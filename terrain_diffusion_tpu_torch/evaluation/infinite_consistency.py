@@ -152,7 +152,7 @@ def evaluate(base_path: str, decoder_path: str, dataset_kwargs: dict, *, n_image
               default="blend")
 @click.option("--seed", type=int, default=0)
 @click.option("--features", default="terrain",
-              help="'terrain' ('inception' needs evaluation/inception.py, not ported yet)")
+              help="'terrain' or 'inception[:/path/to/weights]'")
 @click.option("--canvas", type=int, default=192,
               help="latent-px canvas the tiled modes generate before the central crop")
 @click.option("--crop", type=int, default=64, help="latent-px tile / final crop size")

@@ -4,8 +4,8 @@ Counterpart of ``terrain_diffusion_tpu.evaluation.metrics``.  The default
 feature extractor, ``terrain_features``, computes multi-scale structural
 statistics of heightmaps (pooled heights, gradients, a Laplacian band) as
 tensor ops on the tensor's device; FID and KID themselves run in numpy /
-scipy in float64, as in the JAX package.  Inception features
-(``evaluation/inception.py``) are not ported yet.
+scipy in float64, as in the JAX package.  ``resolve_feature_fn("inception:<weights>")``
+gives InceptionV3 pool3 features (``evaluation/inception.py``).
 """
 from __future__ import annotations
 
@@ -54,15 +54,25 @@ def terrain_features(x: torch.Tensor) -> torch.Tensor:
 
 def resolve_feature_fn(spec) -> Callable:
     """A feature-extractor spec as a callable: a callable as it is, None or
-    "terrain" as ``terrain_features``; "inception[...]" is not ported."""
+    "terrain" as ``terrain_features``, "inception:/path/to/weights" (or
+    "inception" with the path in ``$TDTPU_INCEPTION_WEIGHTS``) as InceptionV3
+    pool3 features."""
+    import os
+
     if callable(spec):
         return spec
     if spec in (None, "terrain"):
         return terrain_features
     if isinstance(spec, str) and spec.startswith("inception"):
-        raise NotImplementedError(
-            "inception features need evaluation/inception.py, which is not ported yet "
-            "(ROADMAP.md section 1); use features='terrain'")
+        from terrain_diffusion_tpu_torch.evaluation.inception import inception_feature_fn
+
+        path = spec.split(":", 1)[1] if ":" in spec else os.environ.get(
+            "TDTPU_INCEPTION_WEIGHTS", "")
+        if not path:
+            raise ValueError("inception features need a weights file: pass "
+                             "'inception:/path/to/pt_inception.pth' or set "
+                             "$TDTPU_INCEPTION_WEIGHTS (weights are not bundled)")
+        return inception_feature_fn(path)
     raise ValueError(f"unknown feature extractor {spec!r}")
 
 

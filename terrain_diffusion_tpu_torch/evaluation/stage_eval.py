@@ -115,7 +115,7 @@ def run_stage_eval(stage: str, model_path: str, h5_file: str, *, features="terra
 @click.option("--seed", type=int, default=0)
 @click.option("--disable-laplacian-denoising", is_flag=True, default=False)
 @click.option("--features", default="terrain",
-              help="'terrain' ('inception' needs evaluation/inception.py, not ported yet)")
+              help="'terrain' or 'inception[:/path/to/weights]'")
 @click.option("--device", default="cuda", help="--device cpu runs on the CPU")
 def main(model_path, stage, h5_file, guide_path, guidance_scale, n_images, batch, steps, seed,
          disable_laplacian_denoising, features, device):

@@ -1,13 +1,13 @@
 """Weights across packages and on disk.
 
 - ``params_from_jax(model, tree)``: the JAX package's parameter pytree
-  (numpy leaves) of an ``EDMUnet2D`` or an ``EDMAutoencoder`` as this
-  package's state dict - HWIO -> OIHW for conv weights, (in, out) ->
-  (out, in) for linear weights, names from the same tables as the JAX
-  package's torch-compat name maps.
+  (numpy leaves) of an ``EDMUnet2D``, an ``EDMAutoencoder`` or a
+  ``Perceptron`` as this package's state dict - HWIO -> OIHW for conv
+  weights, (in, out) -> (out, in) for linear weights, names from the same
+  tables as the JAX package's torch-compat name maps (``name_map``).
 - ``load_model`` / ``save_model``: the reference directory layout
   (``config.json`` + ``model.safetensors`` in reference state-dict naming)
-  for both classes, chosen by the config's ``_class_name``.
+  for the three classes, chosen by the config's ``_class_name``.
   ``safetensors`` is imported only when a file is read or written.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 from terrain_diffusion_tpu_torch.nn.edm_autoencoder import (EDMAutoencoder,
                                                            EDMAutoencoderConfig)
 from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
+from terrain_diffusion_tpu_torch.nn.perceptron import Perceptron, PerceptronConfig
 
 
 def unet_name_map(model: EDMUnet2D):
@@ -97,9 +98,23 @@ def autoencoder_name_map(model: EDMAutoencoder):
     return out
 
 
-def _name_map(model):
+def perceptron_name_map(model: Perceptron):
+    """(state-dict name, JAX tree path, is_linear) triples for a Perceptron:
+    ``nets.{k}.{position}`` in each ensemble member's ``nn.Sequential``,
+    which advances past every hidden activation (and Dropout)."""
+    return [(f"nets.{k}.{pos}.{kind}", (f"net{k}", f"l{i}", kind[0]), kind == "weight")
+            for k, layers in enumerate(model.linear_positions())
+            for i, pos in enumerate(layers)
+            for kind in (("weight", "bias") if model.config.bias else ("weight",))]
+
+
+def name_map(model):
+    """The (state-dict name, JAX tree path, is_linear) triples of ``model``:
+    the leaves of the JAX package's parameter tree."""
     if isinstance(model, EDMAutoencoder):
         return autoencoder_name_map(model)
+    if isinstance(model, Perceptron):
+        return perceptron_name_map(model)
     return unet_name_map(model)
 
 
@@ -112,7 +127,7 @@ def _tree_get(tree: dict, path):
 def params_from_jax(model, tree: dict) -> dict:
     """State dict (CPU float32 tensors) from a JAX parameter pytree."""
     state = {}
-    for tname, path, linear in _name_map(model):
+    for tname, path, linear in name_map(model):
         arr = np.asarray(_tree_get(tree, path), dtype=np.float32)
         if arr.ndim == 4:  # HWIO -> OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
@@ -123,7 +138,7 @@ def params_from_jax(model, tree: dict) -> dict:
 
 
 def load_model(path: str, *, device):
-    """EDMUnet2D or EDMAutoencoder (by ``_class_name``) from a
+    """EDMUnet2D, EDMAutoencoder or Perceptron (by ``_class_name``) from a
     reference-format directory, in eval mode."""
     from safetensors.torch import load_file
 
@@ -133,10 +148,12 @@ def load_model(path: str, *, device):
     gen = torch.Generator().manual_seed(0)
     if cls_name == "EDMAutoencoder":
         model = EDMAutoencoder(EDMAutoencoderConfig.from_dict(cfg), device=device, generator=gen)
+    elif cls_name == "Perceptron":
+        model = Perceptron(PerceptronConfig.from_dict(cfg), device=device, generator=gen)
     elif cls_name == "EDMUnet2D":
         model = EDMUnet2D(EDMUnetConfig.from_dict(cfg), device=device, generator=gen)
     else:
-        raise NotImplementedError(f"{cls_name} is not ported (ROADMAP.md section 1)")
+        raise ValueError(f"unknown model class {cls_name!r} in {path}")
     model.load_state_dict(load_file(os.path.join(path, "model.safetensors")))
     return model.eval()
 

@@ -1,7 +1,9 @@
 """Dataset registry entries (counterpart of
-``terrain_diffusion_tpu/training/datasets/__init__.py``): ``h5_latents`` and
-``h5_decoder_terrain``; the other datasets raise NotImplementedError."""
+``terrain_diffusion_tpu/training/datasets/__init__.py``): every dataset the
+JAX package registers.  The HDF5 datasets import ``h5py`` only where they
+open a file, and the others their modules only when they are built."""
 from terrain_diffusion_tpu_torch.training.datasets.h5_datasets import (  # noqa: F401
+    H5AutoencoderDataset,
     H5DecoderTerrainDataset,
     H5LatentsDataset,
     LongDataset,
@@ -21,11 +23,32 @@ def _make_decoder(**kw):
     return H5DecoderTerrainDataset(**kw)
 
 
-def _not_ported(name):
-    def factory(**_kw):
-        raise NotImplementedError(f"the {name} dataset is not ported yet (ROADMAP.md section 1)")
-    return factory
+@dataset_registry.register("h5_autoencoder")
+def _make_autoencoder(**kw):
+    return H5AutoencoderDataset(**kw)
 
 
-for _name in ("h5_autoencoder", "h5_superres_terrain", "coarse", "biome", "file_gan"):
-    dataset_registry.register(_name)(_not_ported(_name))
+@dataset_registry.register("h5_superres_terrain")
+def _make_superres(**kw):
+    from terrain_diffusion_tpu_torch.training.datasets.superres_dataset import (
+        H5SuperresTerrainDataset,
+    )
+    return H5SuperresTerrainDataset(**kw)
+
+
+@dataset_registry.register("coarse")
+def _make_coarse(**kw):
+    from terrain_diffusion_tpu_torch.training.datasets.coarse_dataset import CoarseDataset
+    return CoarseDataset(**kw)
+
+
+@dataset_registry.register("biome")
+def _make_biome(**kw):
+    from terrain_diffusion_tpu_torch.training.datasets.biome_dataset import BiomeDataset
+    return BiomeDataset(**kw)
+
+
+@dataset_registry.register("file_gan")
+def _make_file_gan(**kw):
+    from terrain_diffusion_tpu_torch.training.datasets.file_gan_dataset import FileGANDataset
+    return FileGANDataset(**kw)

@@ -10,7 +10,8 @@ latents, D4 augmentation with inverse-transformed source coords, and the
 conditioning images.  ``h5py`` is imported only where a file is opened.
 
 Ported: ``H5LatentsDataset`` (with ``val_dset``'s real-DEM ground truth,
-which the evaluation reads), ``H5DecoderTerrainDataset``, ``LongDataset``,
+which the evaluation reads), ``H5DecoderTerrainDataset``,
+``H5AutoencoderDataset``, ``LongDataset``,
 ``collate`` and ``batch_iterator``.  ``batch_iterator`` yields batches in
 index order from one producer thread: the JAX iterator's two workers may
 hand over two batches out of order, and a resumed run must see the batches
@@ -471,6 +472,72 @@ class H5DecoderTerrainDataset(_H5SubsetMixin):
 
     def denormalize_residual(self, residual):
         return residual * self.residual_std + self.residual_mean
+
+
+class H5AutoencoderDataset(_H5SubsetMixin):
+    """Residual crops for VAE training: 8-aligned crops (centred for
+    ``eval_dataset``), D4 augmentation, normalization by ``residual_mean`` /
+    ``residual_std``, optionally squared back out of signed-sqrt space, times
+    ``sigma_data``."""
+
+    def __init__(self, h5_file, crop_size, pct_land_ranges, subset_resolutions,
+                 subset_weights=None, eval_dataset=False, split=None,
+                 residual_mean=0.0, residual_std=1.0, sigma_data=0.5,
+                 square_elevation: bool = False, signed_sqrt=None):
+        import h5py
+
+        # the config spelling (autoencoder_x8_squared.cfg): signed_sqrt=false
+        # trains on raw-meter (squared-back) residuals
+        if signed_sqrt is not None:
+            square_elevation = not signed_sqrt
+        if subset_weights is None:
+            subset_weights = [1] * len(pct_land_ranges)
+        self.h5_file = h5_file
+        self.crop_size = crop_size
+        self.subset_weights = np.asarray(subset_weights, np.float64)
+        self.subset_weights /= self.subset_weights.sum()
+        self.eval_dataset = eval_dataset
+        self.sigma_data = sigma_data
+        self.residual_mean = residual_mean
+        self.residual_std = residual_std
+        self.square_elevation = square_elevation
+        self.rng = np.random.default_rng(0)
+        with h5py.File(h5_file, "r") as f:
+            self.keys = self._scan_keys(f, "residual", pct_land_ranges,
+                                        subset_resolutions, split, False)
+
+    def __len__(self):
+        return max(len(k) for k in self.keys)
+
+    def set_seed(self, seed):
+        self.rng = np.random.default_rng(int(seed) % 2**63)
+
+    def __getitem__(self, index):
+        import h5py
+
+        subset_idx = int(self.rng.choice(len(self.subset_weights), p=self.subset_weights))
+        bucket = self.keys[subset_idx]
+        chunk_id, res, subchunk_id = bucket[int(self.rng.integers(len(bucket)))]
+        with h5py.File(self.h5_file, "r") as f:
+            group_path = f"{res}/{chunk_id}/{subchunk_id}"
+            residual = f[f"{group_path}/residual"]
+            H, W = residual.shape
+            cs = self.crop_size
+            if not self.eval_dataset:
+                i = int(self.rng.integers(0, (H - cs) // 8 + 1)) * 8
+                j = int(self.rng.integers(0, (W - cs) // 8 + 1)) * 8
+            else:
+                i = (H - cs) // 2 // 8 * 8
+                j = (W - cs) // 2 // 8 * 8
+            crop = np.asarray(residual[i:i + cs, j:j + cs], np.float32)[None]
+        transform_idx = int(self.rng.integers(8)) if not self.eval_dataset else 0
+        crop = _apply_d4(crop, transform_idx // 4 == 1, transform_idx % 4)
+        crop = (crop - self.residual_mean) / self.residual_std
+        if self.square_elevation:
+            crop = np.sign(crop) * np.square(crop)
+        image = crop * self.sigma_data
+        return {"image": _chw_to_hwc(image).astype(np.float32),
+                "cond_inputs": [], "path": group_path}
 
 
 class LongDataset:

@@ -7,7 +7,9 @@
 - consistency (sCM/TrigFlow distillation): teacher velocity (+ optional
   AutoGuidance mix), the JVP of the student (``torch.func.jvp``, where JAX
   uses ``jax.jvp``), tangent-normalized target with warmup ratio r, adaptive
-  logvar weighting.
+  logvar weighting;
+- autoencoder: MAE + KL (+ an optional perceptual term), the posterior
+  sample drawn from a threefry key as JAX draws it.
 
 Each loss is split in two: ``draws(images, generator)`` draws the step's
 random numbers from a CPU ``torch.Generator`` (standard normals for sigma
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from terrain_diffusion_tpu_torch.nn.layers import normalize_weights_
-from terrain_diffusion_tpu_torch.nn.torch_compat import unet_name_map
+from terrain_diffusion_tpu_torch.nn.torch_compat import name_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,19 +201,50 @@ def consistency_loss(model, teacher_fn: Callable, batch: dict, d: dict,
     return loss, aux
 
 
+def autoencoder_loss(ae, batch: dict, key, kl_weight: float = 1e-5,
+                     perceptual_fn: Optional[Callable] = None,
+                     perceptual_weight: float = 1.0):
+    """VAE loss: MAE + kl_weight * KL (+ perceptual_weight * the optional
+    perceptual term), the same for training and validation: both draw a
+    posterior sample, from the threefry ``key`` (``ops/noise_field.py``,
+    JAX's ``key``: the same key gives JAX's eps)."""
+    images = batch["image"]
+    means, logvars = ae.preencode(images)
+    z = ae.postencode(means, logvars, key=key)
+    recon = ae.decode(z)
+    mae = torch.abs(recon - images).mean()
+    kl = 0.5 * (means ** 2 + torch.exp(logvars) - 1.0 - logvars).mean()
+    loss = mae + kl_weight * kl
+    aux = {"mae": mae.detach(), "kl": kl.detach()}
+    if perceptual_fn is not None:
+        p = perceptual_fn(recon, images)
+        loss = loss + perceptual_weight * p
+        aux["perceptual"] = p.detach()
+    return loss, aux
+
+
+def key_from_generator(generator: torch.Generator):
+    """A threefry key seeded by an int32 drawn from ``generator``: the
+    step's key where a loss draws as JAX does (``jax.random.key(seed)``
+    with the same seed gives the same draws)."""
+    from terrain_diffusion_tpu_torch.ops.noise_field import key_from_seed
+
+    return key_from_seed(int(torch.randint(0, 2 ** 31, (1,), generator=generator)))
+
+
 # ---------------------------------------------------------------------------
 # Optimizer and train step
 # ---------------------------------------------------------------------------
 
 def trained_tensors(model) -> dict:
     """The tensors training updates, by state-dict name, each set to require
-    grad: the leaves of JAX's parameter tree (``unet_name_map``), that is
-    every parameter and also the Fourier and positional embeddings' freqs
-    and phases, which JAX's trainer updates as parameters where the
-    reference keeps them as buffers."""
+    grad: the leaves of JAX's parameter tree (``name_map``), that is every
+    parameter and also the Fourier and positional embeddings' freqs and
+    phases, which JAX's trainer updates as parameters where the reference
+    keeps them as buffers."""
     state = model.state_dict(keep_vars=True)
     out = {}
-    for name, _path, _linear in unet_name_map(model):
+    for name, _path, _linear in name_map(model):
         out[name] = state[name].requires_grad_(True)
     return out
 
@@ -240,22 +273,26 @@ class ClippedAdam:
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, state: dict, lr: float) -> torch.Tensor:
+    def update(self, params: dict, grads: dict, state: dict, lr: float,
+               b2: Optional[float] = None) -> torch.Tensor:
         """Apply one update to ``params`` in place; returns the gradients'
-        global norm (before clipping)."""
+        global norm (before clipping).  ``b2`` replaces the optimizer's for
+        this step, moment and bias correction alike (optax's
+        ``inject_hyperparams``)."""
+        b2 = self.b2 if b2 is None else float(b2)
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = g_norm < self.grad_clip
         state["count"] += 1
         count = state["count"]
         f32, dev = torch.float32, g_norm.device
         c1 = (1 - torch.tensor(self.b1, dtype=f32) ** count).to(dev)
-        c2 = (1 - torch.tensor(self.b2, dtype=f32) ** count).to(dev)
+        c2 = (1 - torch.tensor(b2, dtype=f32) ** count).to(dev)
         for k, p in params.items():
             g = grads[k]
             g = torch.where(keep, g, (g / g_norm) * self.grad_clip)
             mu, nu = state["mu"][k], state["nu"][k]
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            nu.copy_((1 - b2) * (g * g) + b2 * nu)
             upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             p.copy_(p + (upd * -1.0) * lr)
         return g_norm

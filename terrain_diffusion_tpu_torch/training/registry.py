@@ -8,11 +8,10 @@ registered block.
 
 Registries provided: ``scheduler``, ``model``, ``lr_sched``, ``dataset``,
 ``trainer``, ``utils``, populated by `build_registry()`.  A ``model`` entry
-resolves to a ``UnetSpec``: a torch module holds its weights, so the trainer
-builds it (``spec.build(device, generator)``) from the run's seed, where
-JAX's stateless model is initialized by ``model.init(key)``.  The
-``autoencoder`` and ``perceptron`` models raise NotImplementedError: their
-trainers are not ported.
+(``unet``, ``autoencoder``, ``perceptron``) resolves to a ``ModelSpec``: a
+torch module holds its weights, so the trainer builds it
+(``spec.build(device, generator)``) from the run's seed, where JAX's
+stateless model is initialized by ``model.init(key)``.
 """
 from __future__ import annotations
 
@@ -139,16 +138,22 @@ def resolve(config: dict) -> dict:
     return {k: resolve_node(v) for k, v in config.items()}
 
 
-class UnetSpec:
-    """An ``EDMUnet2D`` configuration, built on demand."""
+class ModelSpec:
+    """A model configuration (``EDMUnetConfig``, ``EDMAutoencoderConfig`` or
+    ``PerceptronConfig``), built on demand into its module."""
 
     def __init__(self, config):
         self.config = config
 
     def build(self, device, generator: "torch.Generator"):
-        from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D
+        from terrain_diffusion_tpu_torch.nn.edm_autoencoder import (EDMAutoencoder,
+                                                                   EDMAutoencoderConfig)
+        from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
+        from terrain_diffusion_tpu_torch.nn.perceptron import Perceptron, PerceptronConfig
 
-        return EDMUnet2D(self.config, device=device, generator=generator)
+        cls = {EDMUnetConfig: EDMUnet2D, EDMAutoencoderConfig: EDMAutoencoder,
+               PerceptronConfig: Perceptron}[type(self.config)]
+        return cls(self.config, device=device, generator=generator)
 
 
 _BUILT = False
@@ -161,7 +166,9 @@ def build_registry():
         return
     _BUILT = True
 
+    from terrain_diffusion_tpu_torch.nn.edm_autoencoder import EDMAutoencoderConfig
     from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnetConfig
+    from terrain_diffusion_tpu_torch.nn.perceptron import PerceptronConfig
     from terrain_diffusion_tpu_torch.scheduler.dpmsolver import EDMSchedulerConfig
     from terrain_diffusion_tpu_torch.training import lr_sched as ls
 
@@ -172,16 +179,15 @@ def build_registry():
 
     @model_registry.register("unet")
     def make_unet(**kwargs):
-        return UnetSpec(EDMUnetConfig.from_dict(kwargs))
+        return ModelSpec(EDMUnetConfig.from_dict(kwargs))
 
     @model_registry.register("autoencoder")
     def make_autoencoder(**kwargs):
-        raise NotImplementedError("the autoencoder trainer is not ported yet (ROADMAP.md "
-                                  "section 1); nn/edm_autoencoder.py is")
+        return ModelSpec(EDMAutoencoderConfig.from_dict(kwargs))
 
     @model_registry.register("perceptron")
     def make_perceptron(**kwargs):
-        raise NotImplementedError("the perceptron model is not ported yet (ROADMAP.md section 1)")
+        return ModelSpec(PerceptronConfig.from_dict(kwargs))
 
     @lr_sched_registry.register("sqrt")
     def make_sqrt(lr, ref_nimg, warmup_nimg=0, **_):

@@ -1,8 +1,8 @@
 """Trainer registry entries (counterpart of
-``terrain_diffusion_tpu/training/trainers/__init__.py``): the diffusion and
-consistency trainers; the autoencoder, GAN and perceptron trainers raise
-NotImplementedError."""
+``terrain_diffusion_tpu/training/trainers/__init__.py``): the diffusion,
+consistency, autoencoder, GAN and perceptron trainers."""
 from terrain_diffusion_tpu_torch.training.registry import trainer_registry
+from terrain_diffusion_tpu_torch.training.trainers.autoencoder import AutoencoderTrainer
 from terrain_diffusion_tpu_torch.training.trainers.base import TrainerBase  # noqa: F401
 from terrain_diffusion_tpu_torch.training.trainers.consistency import ConsistencyTrainer
 from terrain_diffusion_tpu_torch.training.trainers.diffusion import DiffusionTrainer
@@ -18,11 +18,18 @@ def _consistency():
     return ConsistencyTrainer
 
 
-def _not_ported(name):
-    def factory():
-        raise NotImplementedError(f"the {name} trainer is not ported yet (ROADMAP.md section 1)")
-    return factory
+@trainer_registry.register("autoencoder")
+def _autoencoder():
+    return AutoencoderTrainer
 
 
-for _name in ("autoencoder", "gan", "perceptron"):
-    trainer_registry.register(_name)(_not_ported(_name))
+@trainer_registry.register("gan")
+def _gan():
+    from terrain_diffusion_tpu_torch.training.trainers.gan import GANTrainer
+    return GANTrainer
+
+
+@trainer_registry.register("perceptron")
+def _perceptron():
+    from terrain_diffusion_tpu_torch.training.trainers.perceptron import PerceptronTrainer
+    return PerceptronTrainer

@@ -67,15 +67,18 @@ class TrainerBase:
         weights = load_file(os.path.join(path, "saved_model", "model.safetensors"))
         self.model.load_state_dict({k: v.to(self.device) for k, v in weights.items()})
         blob = torch.load(os.path.join(path, "train_state.pt"), map_location="cpu")
-        saved = blob["opt_state"]
-        opt = state["opt_state"]
-        opt["count"] = int(saved["count"])
-        for moment in ("mu", "nu"):
-            for k, v in opt[moment].items():
-                v.copy_(saved[moment][k])
+        load_opt_state(state["opt_state"], blob["opt_state"])
         if blob.get("ema") and state.get("ema"):
             state["ema"].load_state_dict(blob["ema"])
         return blob["counters"]
+
+
+def load_opt_state(opt: dict, saved: dict):
+    """Copy a saved ``ClippedAdam`` state into a live one, in place."""
+    opt["count"] = int(saved["count"])
+    for moment in ("mu", "nu"):
+        for k, v in opt[moment].items():
+            v.copy_(saved[moment][k])
 
 
 def ema_for(params: dict, config: dict, save_dir: str | None) -> PostHocEMA:

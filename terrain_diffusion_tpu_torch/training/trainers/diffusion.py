@@ -16,6 +16,7 @@ import torch
 
 from terrain_diffusion_tpu_torch.training.diffusion_core import (DiffusionLossConfig, draws,
                                                                  diffusion_loss,
+                                                                 key_from_generator,
                                                                  make_optimizer,
                                                                  make_train_step)
 from terrain_diffusion_tpu_torch.training.trainers.base import TrainerBase, ema_for
@@ -91,7 +92,7 @@ class DiffusionTrainer(TrainerBase):
         sampling as JAX's key does; by default it is drawn from
         ``generator``, which also draws the validation loss's noise."""
         from terrain_diffusion_tpu_torch.nn import torch_compat
-        from terrain_diffusion_tpu_torch.ops.noise_field import key_from_seed, split
+        from terrain_diffusion_tpu_torch.ops.noise_field import split
         from terrain_diffusion_tpu_torch.training.datasets import collate
         from terrain_diffusion_tpu_torch.training.trainers.eval_kid import evaluate_kid
 
@@ -101,7 +102,7 @@ class DiffusionTrainer(TrainerBase):
         batches = [collate([val_dataset[i * bs + j] for j in range(bs)])
                    for i in range(max(n_val // bs, 1))]
         if key is None:
-            key = key_from_seed(int(torch.randint(0, 2 ** 31, (1,), generator=generator)))
+            key = key_from_generator(generator)
         _key, _k1, k2 = split(key, 3)
         out = self.evaluate(state, batches, generator)
         if not ev.get("kid_enabled", False):

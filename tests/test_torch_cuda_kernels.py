@@ -589,6 +589,51 @@ def test_training_forward_on_the_card_takes_the_plain_path(dev):
     assert (fb.fused_block.launches, fb.conv3x3.launches) == (top, 2)
 
 
+def test_autoencoder_validation_forward_on_the_card(dev, monkeypatch):
+    """The autoencoder trainer's validation loss (``autoencoder_loss`` under
+    no_grad, eval mode) and a VAE round trip at 128x128 on the card: with
+    the kernels (every block of at least 128 x 128 pixels and the in conv
+    launch), then with the wrappers raising and the cutover out of reach
+    (the plain path), within TOL."""
+    from terrain_diffusion_tpu_torch.nn import edm_unet, layers
+    from terrain_diffusion_tpu_torch.nn.edm_autoencoder import (EDMAutoencoder,
+                                                               EDMAutoencoderConfig)
+    from terrain_diffusion_tpu_torch.ops import cuda_lib
+    from terrain_diffusion_tpu_torch.ops.noise_field import key_from_seed
+    from terrain_diffusion_tpu_torch.training.diffusion_core import autoencoder_loss
+
+    cfg = EDMAutoencoderConfig(image_size=128, in_channels=1, latent_channels=4,
+                               out_channels=1, model_channels=32, model_channel_mults=(1, 2),
+                               layers_per_block=1, attn_resolutions=(),
+                               midblock_attention=False)
+    ae = EDMAutoencoder(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.randn((2, 128, 128, 1), generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def run():
+        with torch.no_grad():
+            loss, aux = autoencoder_loss(ae, {"image": x}, key_from_seed(3))
+            means, _ = ae.preencode(x)
+            return [loss, aux["mae"], aux["kl"], means, ae.decode(means)]
+
+    cuda_lib.reset_launch_counts()
+    got = run()
+    n_enc = sum(1 for name, kind, *_ in ae.encoder.enc_plan
+                if kind == "block" and name.startswith("128x128_"))
+    n_dec = sum(1 for name, *_ in ae.decoder_plan if name.startswith("128x128_") or name == "up0")
+    assert (fb.fused_block.launches, fb.conv3x3.launches) == (2 * (n_enc + n_dec), 2)
+
+    def boom(*a, **k):
+        raise AssertionError("a kernel wrapper was called")
+
+    monkeypatch.setattr(layers, "fused_block", boom)
+    monkeypatch.setattr(edm_unet, "conv3x3", boom)
+    monkeypatch.setattr(layers, "FUSED_MIN_PIXELS", 1 << 62)
+    monkeypatch.setattr(edm_unet, "FUSED_MIN_PIXELS", 1 << 62)
+    want = run()
+    for a, b in zip(got, want):
+        assert _rel(a.cpu(), b.cpu()) < TOL
+
+
 # The VAE (autoencoder_x8.cfg): blocks without an embedding (c = None) at the
 # enc and dec widths the decoder U-Net never sends - a 256 -> 128 projection,
 # 128- and 256-channel pre-upsamples, 128 -> 256 and 128 -> 64 projections -

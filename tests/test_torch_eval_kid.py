@@ -142,7 +142,7 @@ def test_evaluate_full_matches_jax(h5_file, saved):
 
     from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnetConfig
     from terrain_diffusion_tpu_torch.training import lr_sched
-    from terrain_diffusion_tpu_torch.training.registry import UnetSpec
+    from terrain_diffusion_tpu_torch.training.registry import ModelSpec
     from terrain_diffusion_tpu_torch.training.trainers.base import ema_for
     from terrain_diffusion_tpu_torch.training.trainers.diffusion import DiffusionTrainer
 
@@ -158,7 +158,7 @@ def test_evaluate_full_matches_jax(h5_file, saved):
     jstate = {"params": params, "ema": jax_ema_for(params, config, None)}
     want = jtrainer.evaluate_full(jstate, jds, jax.random.key(1))
 
-    trainer = DiffusionTrainer(config, {"model": UnetSpec(EDMUnetConfig.from_dict(
+    trainer = DiffusionTrainer(config, {"model": ModelSpec(EDMUnetConfig.from_dict(
         model.config.to_dict())), "lr_sched": lr_sched.ConstantLRScheduler(1e-4)}, device="cpu")
     state = trainer.init_state(torch.Generator().manual_seed(0))
     with torch.no_grad():

@@ -165,7 +165,7 @@ def test_compose_terrain_matches_jax(rng, denoise, normalized):
                 jsamplers.compose_terrain(res, low, **kw)) < OP_TOL
 
 
-def test_terrain_features_and_metrics_match_jax(rng):
+def test_terrain_features_and_metrics_match_jax(rng, monkeypatch):
     a = (rng.standard_normal((12, 48, 48, 1)) * 40).astype(np.float32)
     b = (rng.standard_normal((12, 48, 48, 1)) * 30 + np.linspace(0, 50, 48)[None, :, None, None]
          ).astype(np.float32)
@@ -183,7 +183,8 @@ def test_terrain_features_and_metrics_match_jax(rng):
     fid, kid_m, _ = metrics.compute_fid_kid(a, b, batch=6, device="cpu", n_subsets=10)
     jfid, jkid_m, _ = jmetrics.compute_fid_kid(a, b, batch=6, n_subsets=10)
     assert abs(fid - jfid) <= 1e-4 * abs(jfid) and abs(kid_m - jkid_m) <= 1e-4 * abs(jkid_m)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.delenv("TDTPU_INCEPTION_WEIGHTS", raising=False)
+    with pytest.raises(ValueError, match="weights file"):  # "inception:<path>" names it
         metrics.resolve_feature_fn("inception")
 
 
