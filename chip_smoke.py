@@ -160,6 +160,26 @@ Phases, each of which exits non-zero on failure:
    prints ``{"surface": {...}}`` with seconds, launches and peak GiB per
    path.  Indirect caching needs h5py, which the card machine lacks: the
    phase runs direct caching.
+11. data preparation (``terrain_diffusion_tpu_torch.data``) at the JAX
+   builders' defaults on GeoTIFFs written from the seed (an ETOPO-like 10'
+   global raster, one 4096x4096 DEM cell with a void, five 10' synthetic-map
+   rasters): ``process_single_cell`` (4096 / 512, 4 chunks a side) on the
+   card against the same call with ``device="cpu"`` (residual and lowfreq
+   within 1e-5 relative, ids, ``lowres_exact`` and ``pct_land`` equal), with
+   the Laplacian encode's device ms; ``encode_residual`` of the cell's
+   landiest 1024x1024 subchunk (8 x 1024 x 1024 x 1 through D4) with
+   ``autoencoder_x8.cfg`` at full width (seeded random weights saved and
+   loaded through ``load_model``): its launches held to ``vae_launches`` at
+   1024 (11 blocks + the in and out convs, float32), then against the plain
+   path on the card within 1e-4 (kernel, plain, plain, kernel; peak GiB);
+   ``calculate_beauty_score`` of the 16 subchunks, card against CPU within
+   1e-5; ``build-synthetic-stats`` through the command group on the 10'
+   rasters, then a WorldPipeline in that directory whose conditioning map
+   equals the cache's and not the built-in tables', and one 256x256 get.
+   It prints ``{"data_prep": {...}}``.  The HDF5 loops around these calls
+   need h5py and run on the CPU only.  The kernel phase holds the encode's
+   new shapes: the block at 1024x1024 64->64 b8 (2^31 bytes a tensor), the
+   in conv 2->64 at 1024x1024 b8 and the out conv 256->8 at 128x128 b8.
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
@@ -175,8 +195,10 @@ forwards in fp16, ``training_launches`` from the consistency run, the
 autoencoder's evaluate and saved-model round trip and the GAN run and FID,
 ``evaluation_launches`` from the evaluation phase, which must be positive
 for the three float32 kernels, ``surface_launches`` from the surface phase,
-which must be positive for the float32 and bf16 kernels), the card's name
-and power limit, and
+which must be positive for the float32 and bf16 kernels, and
+``data_prep_launches`` from the data-preparation encode, which must be
+positive for the float32 block and conv), the card's name and power limit,
+and
 {"ok": true, "device": {...}}.
 """
 import configparser
@@ -549,6 +571,14 @@ def kernel_phase(torch, fb, attn, cuda_lib, dev):
                   for name, a, k, per in VAE_BLOCK_CASES]
         cases += [("conv3x3" + sfx, "vae in conv 512x512 2->64 b2",
                    dict(conv_case(2, 2, 64, dtype=dt), per_forward="1/VAE encode"))]
+    # the data-preparation encode: one 1024x1024 subchunk's eight D4 views
+    # (8 x 1024 x 1024 x 64 float32 is 2^31 bytes), float32
+    cases += [("fused_block", "prep enc 1024x1024 64->64 b8",
+               dict(block_case(8, 1024, 64, 64, "enc", emb=False), per_forward="2/prep encode")),
+              ("conv3x3", "prep in conv 1024x1024 2->64 b8",
+               dict(conv_case(8, 2, 64, size=1024), per_forward="1/prep encode")),
+              ("conv3x3", "prep out conv 128x128 256->8 b8",
+               dict(conv_case(8, 256, 8, size=128), per_forward="1/prep encode"))]
     rows = []
     for kernel, name, case in cases:
         suffix = kernel[-len(BF16):] if kernel[-len(BF16):] in (BF16, FP16) else ""
@@ -1991,26 +2021,33 @@ class EvalLaunches:
         return out, counts
 
 
-def vae_launches(vae) -> tuple:
-    """Kernel launches of one encode and one decode at the config's image
-    size: the blocks whose output map has at least 128 x 128 pixels, and the
-    encoder's in conv (the decoder's head stays an MPConv)."""
+def vae_launches(vae, size=None) -> tuple:
+    """Kernel launches of one encode and one decode of ``size`` x ``size``
+    images (the config's image size by default): the blocks whose output
+    map has at least 128 x 128 pixels, the encoder's in conv and its 3x3 out
+    conv where their maps have (the decoder's head stays an MPConv).  The
+    plan names its levels at the config's image size: a larger image scales
+    every level."""
     from terrain_diffusion_tpu_torch.nn.layers import FUSED_MIN_PIXELS
 
-    size, levels = vae.config.image_size, len(vae.config.model_channel_mults)
+    cfg_size, levels = vae.config.image_size, len(vae.config.model_channel_mults)
+    size = size or cfg_size
 
     def res(name):
         if name.startswith("mid"):
-            return size // 2 ** (levels - 1)
-        if name.startswith("up"):
-            return size // 2 ** int(name[2:])
-        return int(name.split("x")[0])
+            r = cfg_size // 2 ** (levels - 1)
+        elif name.startswith("up"):
+            r = cfg_size // 2 ** int(name[2:])
+        else:
+            r = int(name.split("x")[0])
+        return r * size // cfg_size
 
     n_enc = sum(1 for name, kind, *_ in vae.encoder.enc_plan
                 if kind == "block" and res(name) ** 2 >= FUSED_MIN_PIXELS)
     n_dec = sum(1 for name, *_ in vae.decoder_plan if res(name) ** 2 >= FUSED_MIN_PIXELS)
-    return ({"fused_block": n_enc, "conv3x3": int(size * size >= FUSED_MIN_PIXELS),
-             "attention": 0}, {"fused_block": n_dec, "conv3x3": 0, "attention": 0})
+    n_conv = sum(int(r * r >= FUSED_MIN_PIXELS) for r in (size, size // 2 ** (levels - 1)))
+    return ({"fused_block": n_enc, "conv3x3": n_conv, "attention": 0},
+            {"fused_block": n_dec, "conv3x3": 0, "attention": 0})
 
 
 def vae_phase(torch, np, vae, dev, launches, card):
@@ -2439,6 +2476,277 @@ def surface_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
     return path.by_dtype
 
 
+# ---------------------------------------------------------------------------
+# data-preparation phase
+# ---------------------------------------------------------------------------
+
+PREP = dict(highres_size=4096, lowres_size=512, num_chunks=4)  # the builders' defaults
+PREP_SIGMA = 5.0
+PREP_TOL = 1e-5  # card vs CPU, max|diff| / max|ref|: the cell's Laplacian bands, beauty scores
+PREP_CELL = 1234  # a cell of the default 368.64 km grid
+TEN_MINUTES = (1080, 2160)  # the global 10 arc-minute grid of ETOPO and WorldClim
+
+
+def smooth_field(np, rng, shape, scale, offset=0.0, waves=8, noise=0.0):
+    """A seeded field: random plane waves, plus white noise of ``noise`` x scale."""
+    yy = np.linspace(0.0, 1.0, shape[0])[:, None]
+    xx = np.linspace(0.0, 1.0, shape[1])[None, :]
+    out = np.zeros(shape, np.float32)
+    for _ in range(waves):
+        fy, fx = rng.uniform(0.5, 6.0, 2)
+        out += np.sin(2 * np.pi * fy * yy + rng.uniform(0, 2 * np.pi)).astype(np.float32) \
+            * np.cos(2 * np.pi * fx * xx + rng.uniform(0, 2 * np.pi)).astype(np.float32)
+    out *= scale / np.sqrt(waves)
+    if noise:
+        out += (noise * scale) * rng.standard_normal(shape, dtype=np.float32)
+    return out + np.float32(offset)
+
+
+def write_prep_rasters(np, root):
+    """Seeded GeoTIFFs: an ETOPO-like global 10' raster, one 4096x4096 MERIT-like
+    DEM cell (land, a stretch of sea floor, a void of -9999), and the five
+    synthetic-map rasters at 10' (ETOPO and four WorldClim bio layers, nodata
+    where WorldClim has none)."""
+    from terrain_diffusion_tpu_torch.common.geotiff import Affine, write_geotiff
+    from terrain_diffusion_tpu_torch.pipeline.synthetic_map import RASTER_FILES
+
+    rng = np.random.default_rng(SEED + 20)
+    world = Affine.from_bounds(-180.0, -90.0, 180.0, 90.0, TEN_MINUTES[1], TEN_MINUTES[0])
+    etopo = smooth_field(np, rng, TEN_MINUTES, 2500.0, -800.0)
+    etopo_path = os.path.join(root, "etopo_10m.tif")
+    write_geotiff(etopo_path, etopo, world, compress=None)
+    dem_dir = os.path.join(root, "dem")
+    os.makedirs(dem_dir)
+    dem = smooth_field(np, rng, (PREP["highres_size"],) * 2, 700.0, 500.0, noise=0.05)
+    dem[3000:3600, 200:1400] = -9999.0  # a void, filled from the low-res context
+    write_geotiff(os.path.join(dem_dir, f"dem_{PREP_CELL}.tif"), dem, compress=None)
+    stats_dir = os.path.join(root, "global")
+    os.makedirs(stats_dir)
+    layers = {"elev": etopo, "temp": smooth_field(np, rng, TEN_MINUTES, 12.0, 12.0),
+              "temp_std": smooth_field(np, rng, TEN_MINUTES, 300.0, 800.0),
+              "precip": np.abs(smooth_field(np, rng, TEN_MINUTES, 900.0, 700.0)),
+              "precip_cv": np.abs(smooth_field(np, rng, TEN_MINUTES, 30.0, 60.0))}
+    for name, arr in layers.items():
+        if name != "elev":
+            arr = arr.copy()
+            arr[:90] = -3.4e38  # WorldClim's nodata over the Arctic ocean
+        write_geotiff(os.path.join(stats_dir, RASTER_FILES[name]), arr, world,
+                      nodata=None if name == "elev" else -3.4e38, compress=None)
+    return etopo_path, dem_dir, stats_dir
+
+
+def prep_cell(torch, np, etopo_path, dem_dir, report, card):
+    """``process_single_cell`` of one 4096x4096 cell at the defaults on the card,
+    against the same call on the CPU; the Laplacian encode's device time."""
+    from terrain_diffusion_tpu_torch.data.preprocessing import elevation
+    from terrain_diffusion_tpu_torch.data.world_grid import create_equal_area_grid
+    from terrain_diffusion_tpu_torch.ops.laplacian import laplacian_encode
+
+    bounds = create_equal_area_grid((368640.0, 368640.0))[PREP_CELL]
+    args = (str(PREP_CELL), bounds, dem_dir, etopo_path, PREP["highres_size"],
+            PREP["lowres_size"], PREP_SIGMA)
+    secs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = elevation.process_single_cell(*args, num_chunks=PREP["num_chunks"], device=dev)
+        secs[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            card_out = out
+    cpu_out = out
+    errs = {k: max(rel_err(torch.from_numpy(g[k]).double(), torch.from_numpy(w[k]).double())
+                   for g, w in zip(card_out, cpu_out)) for k in ("residual", "lowfreq")}
+    same = all(np.array_equal(g["lowres_exact"], w["lowres_exact"]) and g["pct_land"] == w["pct_land"]
+               and g["subchunk_id"] == w["subchunk_id"] for g, w in zip(card_out, cpu_out))
+    x = torch.randn((1, PREP["highres_size"], PREP["highres_size"]), device="cuda")
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: laplacian_encode(x, PREP["lowres_size"], PREP_SIGMA), iters=5)
+    report["process_single_cell"] = {
+        "seconds_card": secs["cuda"], "seconds_cpu": secs["cpu"],
+        "laplacian_encode_device_ms": enc_ms, "rel_err": errs,
+        "subchunks": len(card_out), "pct_land": [c["pct_land"] for c in card_out]}
+    print(f"[prep cell] {card}: process_single_cell 4096x4096 -> 16 subchunks of 1024: "
+          f"{secs['cuda']:.2f} s (Laplacian encode on the card), {secs['cpu']:.2f} s with "
+          f"device=cpu; encode of 1x4096x4096 {enc_ms:.3f} ms on the card; card vs CPU "
+          f"residual {errs['residual']:.3e}, lowfreq {errs['lowfreq']:.3e}", flush=True)
+    check(len(card_out) == 16 and same, "process_single_cell: card and CPU subchunks differ in "
+                                        "ids, lowres_exact or pct_land")
+    for k, v in errs.items():
+        check(v < PREP_TOL, f"process_single_cell {k}: card vs CPU {v:.3e} >= {PREP_TOL}")
+    check(all(np.isfinite(c["residual"]).all() for c in card_out), "non-finite residual")
+    return card_out
+
+
+def prep_encode(torch, np, cuda_lib, fb, attn, residual, work_dir, report, card) -> dict:
+    """``encode_residual`` of one 1024x1024 subchunk (b8 through D4) with
+    autoencoder_x8.cfg at full width (seeded random weights, saved and loaded
+    through ``load_model``), through the kernels and on the plain path on the
+    card; launches held to ``vae_launches`` at 1024.  Returns the launches by
+    (kernel, type)."""
+    from terrain_diffusion_tpu_torch.data.preprocessing.build_encoded_dataset import (
+        encode_residual)
+    from terrain_diffusion_tpu_torch.nn import edm_unet, layers, torch_compat
+    from terrain_diffusion_tpu_torch.nn.edm_autoencoder import (EDMAutoencoder,
+                                                               EDMAutoencoderConfig)
+
+    vae_dir = os.path.join(work_dir, "vae")
+    torch_compat.save_model(EDMAutoencoder(
+        EDMAutoencoderConfig.from_dict(model_config(VAE_CFG)), device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 21)), vae_dir)
+    ae = torch_compat.load_model(vae_dir, device="cuda")
+    size = residual.shape[0]
+    want, _ = vae_launches(ae, size)
+    kw = dict(sigma_data=0.5, residual_mean=0.0, residual_std=1.1678)
+
+    def encode():
+        t0 = time.perf_counter()
+        out = encode_residual(ae, residual, **kw)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda_lib.reset_launch_counts()
+    enc, _ = encode()
+    launches, by_dtype = read_launches(fb, attn)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    cutover = layers.FUSED_MIN_PIXELS
+
+    def plain_path(on: bool):  # the cutover out of reach: every block and conv plain
+        layers.FUSED_MIN_PIXELS = edm_unet.FUSED_MIN_PIXELS = (1 << 62) if on else cutover
+
+    turns, device_ms = {"kernels": [], "plain": []}, {}
+    stack = torch.from_numpy(np.stack([residual] * 8)[..., None]).cuda()
+    try:
+        plain_path(True)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        enc_plain, _ = encode()
+        plain_launches, _ = read_launches(fb, attn)
+        plain_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        for path in ("kernels", "plain", "plain", "kernels"):
+            plain_path(path == "plain")
+            turns[path].append(encode()[1])
+        with torch.no_grad():
+            for path in ("kernels", "plain"):
+                plain_path(path == "plain")
+                device_ms[path] = time_ms(lambda: ae.preencode(stack), iters=3)
+    finally:
+        plain_path(False)
+    err = rel_err(torch.from_numpy(enc).double(), torch.from_numpy(enc_plain).double())
+    lat = size // 2 ** (len(ae.config.model_channel_mults) - 1)
+    report["encode_residual"] = {
+        "shape": list(enc.shape), "launches": launches, "predicted": want,
+        "ms_kernels": min(turns["kernels"]), "ms_plain": min(turns["plain"]),
+        "turns_ms": turns, "preencode_ms": device_ms, "rel_err_vs_plain": err,
+        "peak_gib_kernels": peak, "peak_gib_plain": plain_peak}
+    print(f"[prep encode] {card}: encode_residual 1024x1024 -> 8 x 1024x1024x1 autoencoder_x8 "
+          f"float32: kernels {min(turns['kernels']):.1f} ms, plain {min(turns['plain']):.1f} ms "
+          f"(host clock, D4 stack and copies included; turns {json.dumps(turns)}); preencode "
+          f"alone (CUDA events) kernels {device_ms['kernels']:.1f} ms, plain "
+          f"{device_ms['plain']:.1f} ms; rel err vs plain {err:.3e}; launches {launches} "
+          f"(predicted {want}; plain path {plain_launches}); peak above the model "
+          f"{peak:.2f} GiB kernels, {plain_peak:.2f} GiB plain", flush=True)
+    check(enc.shape == (8, 2 * ae.config.latent_channels, lat, lat) and enc.dtype == np.float32
+          and np.isfinite(enc).all(), f"encode_residual: {enc.shape} {enc.dtype}, or non-finite")
+    check(launches == want, f"encode_residual launched {launches}, predicted {want}")
+    check_float32(by_dtype, "prep encode")
+    check(not any(plain_launches.values()), f"the plain encode launched {plain_launches}")
+    check(err < EVAL_TOL, f"encode_residual kernels vs plain: {err:.3e} >= {EVAL_TOL}")
+    return by_dtype
+
+
+def prep_beauty(torch, np, cell, report, card):
+    """``calculate_beauty_score`` of the cell's 16 subchunks, card against CPU."""
+    from terrain_diffusion_tpu_torch.data.preprocessing.beauty_score import (
+        calculate_beauty_score)
+
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        scores[dev] = [calculate_beauty_score(c["lowfreq"], c["residual"], device=dev)
+                       for c in cell]
+        scores[dev + "_ms"] = (time.perf_counter() - t0) * 1e3 / len(cell)
+    diff = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(scores["cuda"], scores["cpu"]))
+    report["beauty_score"] = {"ms_per_subchunk_card": scores["cuda_ms"],
+                              "ms_per_subchunk_cpu": scores["cpu_ms"], "rel_err": diff,
+                              "scores": scores["cuda"]}
+    print(f"[prep beauty] {card}: calculate_beauty_score per 1024x1024 subchunk "
+          f"{scores['cuda_ms']:.1f} ms (decode on the card), {scores['cpu_ms']:.1f} ms with "
+          f"device=cpu; scores {['%.4f' % v for v in scores['cuda']]}; card vs CPU {diff:.3e}",
+          flush=True)
+    check(all(np.isfinite(scores["cuda"])), "non-finite beauty score")
+    check(diff < PREP_TOL, f"beauty score card vs CPU {diff:.3e} >= {PREP_TOL}")
+
+
+def prep_synthetic_stats(torch, np, cli, stats_dir, world_dir, work_dir, report, card):
+    """``build-synthetic-stats`` through the command group on 10' rasters,
+    then a WorldPipeline (from the working directory that holds the cache)
+    whose conditioning comes from it."""
+    from terrain_diffusion_tpu_torch.pipeline import synthetic_map
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        t0 = time.perf_counter()
+        stats = cli.main(["build-synthetic-stats", "--data-dir", stats_dir],
+                         standalone_mode=False)
+        secs = time.perf_counter() - t0
+        cache = synthetic_map.load_stats_cache(expect_params={
+            "drop_water_pct": 0.5, "frequency_mult": [1.5, 3.0, 3.0, 3.0, 3.0]})
+        world = WorldPipeline.from_pretrained(world_dir, seed=SEED, device="cuda",
+                                              log_mode="info")
+        world.bind()
+        kw = dict(seed=SEED, frequency_mult=world.kwargs["frequency_mult"],
+                  drop_water_pct=world.kwargs["drop_water_pct"])
+        box = (-40, 24, 24, 88)
+        got = world.synthetic_map_factory(*box)
+        want = synthetic_map.make_synthetic_map_factory(**kw, stats=cache)(*box)
+        built_in = synthetic_map.make_synthetic_map_factory(
+            **kw, stats_path=os.path.join(work_dir, "absent.json"))(*box)
+        t0 = time.perf_counter()
+        elev = world.get(0, 0, 256, 256)["elev"]
+        get_s = time.perf_counter() - t0
+        world.close()
+    finally:
+        os.chdir(cwd)
+    report["build_synthetic_stats"] = {"seconds": secs, "world_get_256_s": get_s,
+                                       "a_temp_std": stats["a_temp_std"]}
+    print(f"[prep stats] {card}: build-synthetic-stats on 5 rasters of {TEN_MINUTES} in "
+          f"{secs:.2f} s; a WorldPipeline in its directory takes the cache (map equal: "
+          f"{np.array_equal(got, want)}, differs from the built-in tables: "
+          f"{not np.array_equal(got, built_in)}); a 256x256 get {get_s:.2f} s, elev "
+          f"[{elev.min():.0f}, {elev.max():.0f}] m", flush=True)
+    check(cache is not None and np.array_equal(
+        cache["base_image_quantiles_0"], stats["base_image_quantiles_0"]),
+        "build-synthetic-stats wrote no readable cache")
+    check(np.array_equal(got, want) and not np.array_equal(got, built_in),
+          "the WorldPipeline's conditioning did not come from the stats cache")
+    check(elev.shape == (256, 256) and np.isfinite(elev).all(), "world.get with the cache")
+
+
+def data_prep_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
+    """Data preparation at the JAX defaults on seeded synthetic rasters:
+    one cell, the encode of one of its subchunks, the beauty scores, the
+    synthetic-map stats; returns the encode's launches by (kernel, type)."""
+    from terrain_diffusion_tpu_torch import __main__ as cli_main
+
+    report = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as work_dir:
+        t0 = time.perf_counter()
+        etopo_path, dem_dir, stats_dir = write_prep_rasters(np, work_dir)
+        report["rasters_s"] = time.perf_counter() - t0
+        cell = prep_cell(torch, np, etopo_path, dem_dir, report, card)
+        land = max(range(len(cell)), key=lambda i: cell[i]["pct_land"])
+        launches = prep_encode(torch, np, cuda_lib, fb, attn, cell[land]["residual"], work_dir,
+                               report, card)
+        prep_beauty(torch, np, cell, report, card)
+        prep_synthetic_stats(torch, np, cli_main.cli, stats_dir, world_dir, work_dir, report,
+                             card)
+    print(json.dumps({"data_prep": report}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2522,6 +2830,9 @@ def main():
         torch.cuda.empty_cache()
         surface_launches = timed("surface", lambda: surface_phase(
             torch, np, cuda_lib, fb, attn, world_dir, card))
+        torch.cuda.empty_cache()
+        prep_launches = timed("data prep", lambda: data_prep_phase(
+            torch, np, cuda_lib, fb, attn, world_dir, card))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
@@ -2540,11 +2851,14 @@ def main():
                            "library_device_ms": main_case["library_device_ms"], "case": case,
                            "training_launches": train_launches[kernel] if not suffix else 0,
                            "evaluation_launches": eval_launches.get((kernel, dt), 0),
-                           "surface_launches": surface_launches.get((kernel, dt), 0)})
+                           "surface_launches": surface_launches.get((kernel, dt), 0),
+                           "data_prep_launches": prep_launches.get((kernel, dt), 0)})
     check(all(r["evaluation_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched on the evaluation path")
     check(all(r["surface_launches"] > 0 for r in report[:2 * len(KERNELS)]),
           "a float32 or bf16 kernel was not launched on the surface paths")
+    check(all(r["data_prep_launches"] > 0 for r in report[:2]),
+          "the block or conv kernel was not launched by the data-preparation encode")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,5 @@
-"""PyTorch + CUDA port of terrain_diffusion_tpu's serving path and of its
-diffusion and consistency training path (``training/``, the counterpart of
-``terrain_diffusion_tpu/training/``).
+"""PyTorch + CUDA port of terrain_diffusion_tpu: its serving, training,
+evaluation and data-preparation paths, module for module.
 
 The JAX package (``terrain_diffusion_tpu``) stays the reference this
 package is held against; this package imports neither it nor JAX.  Each

@@ -3,8 +3,10 @@
 
     python -m terrain_diffusion_tpu_torch <command> [arguments]
 
-Commands import lazily, so ``--help`` stays fast.  Every command that runs a
-model runs it on the card unless it is given ``--device cpu``.  ``api`` and
+Commands import lazily, so ``--help`` stays fast.  Every command that runs
+work on a device (a model, or the dataset builders' Laplacian encode) runs
+it on the card unless it is given ``--device cpu``; ``define-splits`` and
+``build-synthetic-stats`` run on the host.  ``api`` and
 ``mc-api`` are argparse programs: the group hands them the rest of the
 command line unchanged (``api --help`` is theirs).
 """
@@ -36,6 +38,13 @@ cli = LazyGroup(
         # training
         "train": "terrain_diffusion_tpu_torch.training.train:main",
         "save-model": "terrain_diffusion_tpu_torch.training.save_model:main",
+        # data preprocessing
+        "build-base-dataset":
+            "terrain_diffusion_tpu_torch.data.preprocessing.build_base_dataset:main",
+        "build-encoded-dataset":
+            "terrain_diffusion_tpu_torch.data.preprocessing.build_encoded_dataset:main",
+        "define-splits": "terrain_diffusion_tpu_torch.data.preprocessing.define_splits:main",
+        "build-synthetic-stats": "terrain_diffusion_tpu_torch.pipeline.synthetic_map:build_stats_main",
         # inference / serving
         "explore": "terrain_diffusion_tpu_torch.serving.explorer.server:main",
         "generate": "terrain_diffusion_tpu_torch.serving.world_generator:main",
