@@ -13,8 +13,12 @@ random weights as ``chip_smoke.py`` does, and times one forward at 512x512,
 batch 2 and 16, in float32 and bf16: eager, CUDA events around 3 forwards
 after one warm-up, three times; and its device time, 5 forwards captured in
 a CUDA graph and replayed (``chip_smoke.graph_ms``), which leaves the host
-work out.  It prints each run's times and, per type and batch, the median
-of each side.  Without a card it exits non-zero.
+work out.  Each run also times the three kernel wrappers' host work a call
+at the kernel table's main cases (``chip_smoke.host_ms``: 5 calls that
+never wait for the card, five times): the block at enc 512x512 64->64 b2
+in float32 and bf16, the out conv 512x512 64->1 b2, the attention at the
+midblock 8x8 12x64 b64.  It prints each run's times and, per case, the
+median of each side.  Without a card it exits non-zero.
 """
 import importlib.util
 import json
@@ -26,6 +30,26 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CASES = [("float32", 2), ("float32", 16), ("bfloat16", 2), ("bfloat16", 16)]
 REPEATS = 3
+HOST_CASES = ("block f32 enc 512x512 64->64 b2", "block bf16 enc 512x512 64->64 b2",
+              "conv f32 out 512x512 64->1 b2", "attention f32 midblock 8x8 12x64 b64")
+
+
+def wrapper_calls(torch, dev, g):
+    """The host cases' wrapper calls, on inputs from g."""
+    from terrain_diffusion_tpu_torch.ops import attention as attn
+    from terrain_diffusion_tpu_torch.ops import fused_block as fb
+
+    x = torch.randn((2, 512, 512, 64), generator=g).to(dev)
+    w0, w1 = (torch.randn((3, 3, 64, 64), generator=g).to(dev) / 24.0 for _ in range(2))
+    c = torch.ones((2, 64), device=dev)
+    head = torch.randn((3, 3, 64, 1), generator=g).to(dev) / 24.0
+    qkv = torch.randn((64, 8, 8, 2304), generator=g).to(dev)
+    xb = x.to(torch.bfloat16)
+    return dict(zip(HOST_CASES, (
+        lambda: fb.fused_block(x, w0, w1, c, mode="enc"),
+        lambda: fb.fused_block(xb, w0, w1, c, mode="enc"),
+        lambda: fb.conv3x3(x, head),
+        lambda: attn.fused_pixelnorm_attention(qkv, 12))))
 
 
 def child(pkg_root: str):
@@ -60,6 +84,10 @@ def child(pkg_root: str):
             out["device_ms"][f"{dtype} b{n}"] = [dev_ms]
         del x
         torch.cuda.empty_cache()
+    out["host_ms"] = {}
+    with torch.no_grad():
+        for key, call in wrapper_calls(torch, dev, g).items():
+            out["host_ms"][key] = [smoke.host_ms(call) for _ in range(5)]
     print("RESULT " + json.dumps(out), flush=True)
 
 
@@ -83,17 +111,22 @@ def main():
         runs.append((side, res))
         print(f"[ab] {side} ({res['package']}): " + "; ".join(
             f"{k} {', '.join(f'{t:.2f}' for t in v)} ms (device {res['device_ms'][k][0]:.2f})"
-            for k, v in res["ms"].items()), flush=True)
-    for metric in ("ms", "device_ms"):
-        for dtype, n in CASES:
-            key = f"{dtype} b{n}"
+            for k, v in res["ms"].items()) + "; host a call " + "; ".join(
+            f"{k} {', '.join(f'{t:.4f}' for t in v)} ms" for k, v in res["host_ms"].items()),
+            flush=True)
+    for metric, keys in (("ms", [f"{d} b{n}" for d, n in CASES]),
+                         ("device_ms", [f"{d} b{n}" for d, n in CASES]),
+                         ("host_ms", HOST_CASES)):
+        for key in keys:
             vals = {side: [t for s, r in runs if s == side for t in r[metric][key]]
                     for side in roots}
             med = {side: statistics.median(v) for side, v in vals.items()}
-            print(f"[ab] decoder forward 512x512 {key} {metric}: median parent "
-                  f"{med['parent']:.2f} ({min(vals['parent']):.2f}-{max(vals['parent']):.2f}), "
-                  f"change {med['change']:.2f} ({min(vals['change']):.2f}-"
-                  f"{max(vals['change']):.2f}), {med['change'] / med['parent'] - 1:+.1%}",
+            what = "decoder forward 512x512" if metric != "host_ms" else "wrapper host a call,"
+            f = ".4f" if metric == "host_ms" else ".2f"
+            print(f"[ab] {what} {key} {metric}: median parent "
+                  f"{med['parent']:{f}} ({min(vals['parent']):{f}}-{max(vals['parent']):{f}}), "
+                  f"change {med['change']:{f}} ({min(vals['change']):{f}}-"
+                  f"{max(vals['change']):{f}}), {med['change'] / med['parent'] - 1:+.1%}",
                   flush=True)
 
 

@@ -180,6 +180,21 @@ Phases, each of which exits non-zero on failure:
    need h5py and run on the CPU only.  The kernel phase holds the encode's
    new shapes: the block at 1024x1024 64->64 b8 (2^31 bytes a tensor), the
    in conv 2->64 at 1024x1024 b8 and the out conv 256->8 at 128x128 b8.
+12. export, through the command group on phase 6's world (full-width
+   models, live gains): ``export --device cuda --no-verify`` writes the
+   three U-Nets as torch.export programs (the decoder at 512x512 b1); then a
+   fresh process that imports only torch and the port loads each program
+   and runs it against the eager model on the
+   same inputs: bit for bit, with the launches of each counted from zero
+   (the decoder's 26 block and 2 conv launches, the base's 1 attention
+   launch, equal to eager's) and the decoder's forward timed loaded and
+   eager (CUDA events); ``onnx-export --device cuda`` writes the three ONNX
+   files, each verified on the numpy runtime against the card forward
+   (coarse and base at 64 px, the decoder through its 64-px export), and
+   the decoder is exported again at 128x128, where its verifying forward
+   launches the block and conv kernels.  It prints ``{"export": {...}}``
+   (seconds, bytes, launches, each ONNX file's max|diff|, output std and
+   numpy runtime seconds).
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
@@ -197,8 +212,9 @@ autoencoder's evaluate and saved-model round trip and the GAN run and FID,
 for the three float32 kernels, ``surface_launches`` from the surface phase,
 which must be positive for the float32 and bf16 kernels, and
 ``data_prep_launches`` from the data-preparation encode, which must be
-positive for the float32 block and conv), the card's name and power limit,
-and
+positive for the float32 block and conv, and ``export_launches`` from the
+loaded decoder program, which must be positive for the float32 block and
+conv), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 import configparser
@@ -2477,6 +2493,177 @@ def surface_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# export phase
+# ---------------------------------------------------------------------------
+
+# run in a fresh process that imports only torch and the port: load each
+# exported program, run it and the eager model it came from on the same
+# inputs, count the kernel launches of each, and time the decoder's
+EXPORT_LOADER = r"""
+import json, sys, time
+import torch
+from terrain_diffusion_tpu_torch import use_full_f32
+from terrain_diffusion_tpu_torch.export.torch_export import UNetForward
+from terrain_diffusion_tpu_torch.nn.torch_compat import load_model
+from terrain_diffusion_tpu_torch.ops import attention as attn, cuda_lib, fused_block as fb
+
+use_full_f32()
+world_dir, out_dir, seed = sys.argv[1], sys.argv[2], int(sys.argv[3])
+manifest = json.load(open(out_dir + "/manifest.json"))
+dev = torch.device("cuda", 0)
+
+
+def counts():
+    return {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches,
+            "attention": attn.fused_pixelnorm_attention.launches}
+
+
+def run(fn, args):
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, counts()
+
+
+def event_ms(fn, args, iters=5):
+    with torch.no_grad():
+        fn(*args)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+report = {}
+for name, entry in manifest.items():
+    t0 = time.perf_counter()
+    program = torch.export.load(out_dir + "/" + entry["path"]).module()
+    load_s = time.perf_counter() - t0
+    eager = UNetForward(load_model(world_dir + "/" + name, device=dev))
+    g = torch.Generator().manual_seed(seed)
+    args = [torch.randn(s, generator=g).to(dev) for s in entry["inputs"]]
+    got, loaded = run(program, args)
+    want, eager_counts = run(eager, args)
+    row = {"load_s": load_s, "max_abs_diff": float((got - want).abs().max()),
+           "bit_equal": bool(torch.equal(got, want)), "finite": bool(torch.isfinite(got).all()),
+           "output_std": float(want.std()), "shape": list(got.shape),
+           "launches_loaded": loaded, "launches_eager": eager_counts}
+    if name == "decoder_model":
+        row["loaded_ms"] = [event_ms(program, args) for _ in range(2)]
+        row["eager_ms"] = [event_ms(eager, args) for _ in range(2)]
+    report[name] = row
+report["jax_modules"] = sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "jaxlib", "terrain_diffusion_tpu"))
+print(json.dumps(report))
+"""
+
+
+def export_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
+    """The export commands through the group on the Minecraft phase's world
+    (the full-width coarse, base (attention_impl="pallas") and decoder
+    U-Nets, live gains): ``export`` writes three torch.export programs (the
+    decoder at 512x512), which a fresh process loads and runs against the
+    eager models, counting their launches; ``onnx-export`` writes and
+    verifies the three ONNX files on the numpy runtime against the card
+    forward, and the decoder is exported again at 128x128, where its
+    verifying forward on the card launches the block and conv kernels.
+    Returns the loaded programs' launches by kernel."""
+    from terrain_diffusion_tpu_torch import __main__ as cli_main
+    from terrain_diffusion_tpu_torch.export import onnx_export
+    from terrain_diffusion_tpu_torch.nn.torch_compat import load_model
+
+    cli = cli_main.cli
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as work_dir:
+        out_pt2, out_onnx = os.path.join(work_dir, "pt2"), os.path.join(work_dir, "onnx")
+        t0 = time.perf_counter()
+        # --no-verify: the fresh process below loads and checks every program
+        manifest = cli.main(["export", world_dir, out_pt2, "--device", "cuda", "--no-verify"],
+                            standalone_mode=False)
+        export_s = time.perf_counter() - t0
+        for name, entry in manifest.items():
+            print(f"[export] {name}: {entry['bytes']} bytes, traced and saved in "
+                  f"{entry['export_s']:.1f} s, inputs {entry['inputs']}", flush=True)
+        check(sorted(manifest) == ["base_model", "coarse_model", "decoder_model"],
+              f"export wrote {sorted(manifest)}")
+        check(manifest["decoder_model"]["inputs"][0] == [1, 512, 512, 5],
+              "the decoder program is not at 512x512")
+        print(f"[export] export through the group: {export_s:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, world_dir, out_pt2,
+                               str(SEED + 14)], capture_output=True, text=True, timeout=600,
+                              env=env, cwd=ROOT)
+        loader_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the fresh process failed to run the programs:\n"
+                                    f"{proc.stderr[-3000:]}")
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(loaded.pop("jax_modules") == [], "the fresh process imported JAX")
+        for name, row in loaded.items():
+            print(f"[export] {name} loaded in a fresh process in {row['load_s']:.1f} s: "
+                  f"output {row['shape']}, std {row['output_std']:.4f}, vs eager "
+                  f"max|diff|={row['max_abs_diff']:.3e} (bit equal: {row['bit_equal']}), "
+                  f"launches loaded {row['launches_loaded']}, eager {row['launches_eager']}",
+                  flush=True)
+            check(row["finite"] and row["output_std"] > 0, f"{name}: a vacuous output")
+            # the same operators run on the same inputs: equal bit for bit
+            check(row["bit_equal"], f"{name}: the loaded program differs from eager by "
+                                    f"{row['max_abs_diff']:.3e}")
+            check(row["launches_loaded"] == row["launches_eager"],
+                  f"{name}: the program launched {row['launches_loaded']}, eager "
+                  f"{row['launches_eager']}")
+        dec = loaded["decoder_model"]
+        check(dec["launches_loaded"] == {"fused_block": 26, "conv3x3": 2, "attention": 0},
+              f"the loaded decoder launched {dec['launches_loaded']}, not 26 + 2")
+        check(loaded["base_model"]["launches_loaded"]["attention"] == 1,
+              f"the loaded base launched {loaded['base_model']['launches_loaded']}")
+        print(f"[export] decoder 512x512 b1 forward: loaded program "
+              f"{min(dec['loaded_ms']):.2f} ms, eager {min(dec['eager_ms']):.2f} ms "
+              f"(turns {dec['loaded_ms']} / {dec['eager_ms']}; CUDA events, 5 calls); "
+              f"the fresh process took {loader_s:.1f} s ({card})", flush=True)
+
+        t0 = time.perf_counter()
+        onnx = cli.main(["onnx-export", world_dir, "-o", out_onnx, "--device", "cuda"],
+                        standalone_mode=False)
+        onnx_s = time.perf_counter() - t0
+        decoder = load_model(os.path.join(world_dir, "decoder_model"), device="cuda")
+        cuda_lib.reset_launch_counts()
+        t1 = time.perf_counter()
+        onnx["decoder_model@128"] = onnx_export.export_unet(
+            decoder, os.path.join(out_onnx, "decoder_128.onnx"), image_size=128)
+        onnx_128_s = time.perf_counter() - t1
+        launches_128 = {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches}
+        for name, entry in onnx.items():
+            print(f"[onnx] {name}: {entry['bytes']} bytes, verified at "
+                  f"{entry['verified_at']}x{entry['verified_at']} b2 against the card forward: "
+                  f"max|diff|={entry['max_abs_diff']:.3e}, output_std {entry['output_std']:.4f}, "
+                  f"numpy runtime {entry['runtime_s']:.1f} s", flush=True)
+            check(entry["verified"] is True, f"ONNX export of {name} is not verified: {entry}")
+        print(f"[onnx] decoder at 128x128: its verifying forward launched {launches_128}; "
+              f"onnx-export through the group {onnx_s:.1f} s, the 128x128 export "
+              f"{onnx_128_s:.1f} s", flush=True)
+        check(launches_128["fused_block"] > 0 and launches_128["conv3x3"] == 2,
+              f"the decoder's verifying forward at 128x128 launched {launches_128}")
+    summary = {"card": card, "export_s": export_s, "fresh_process_s": loader_s,
+               "onnx_export_s": onnx_s, "onnx_128_s": onnx_128_s,
+               "programs": {n: {"bytes": manifest[n]["bytes"], "export_s": manifest[n]["export_s"],
+                                "load_s": loaded[n]["load_s"],
+                                "launches": loaded[n]["launches_loaded"]} for n in manifest},
+               "decoder_loaded_ms": min(dec["loaded_ms"]), "decoder_eager_ms": min(dec["eager_ms"]),
+               "onnx": {n: {k: e[k] for k in ("bytes", "verified_at", "max_abs_diff",
+                                              "output_std", "runtime_s")}
+                        for n, e in onnx.items()},
+               "onnx_128_launches": launches_128}
+    print(json.dumps({"export": summary}), flush=True)
+    return {k: v for k, v in dec["launches_loaded"].items()}
+
+
+# ---------------------------------------------------------------------------
 # data-preparation phase
 # ---------------------------------------------------------------------------
 
@@ -2833,6 +3020,9 @@ def main():
         torch.cuda.empty_cache()
         prep_launches = timed("data prep", lambda: data_prep_phase(
             torch, np, cuda_lib, fb, attn, world_dir, card))
+        torch.cuda.empty_cache()
+        export_launches = timed("export", lambda: export_phase(
+            torch, np, cuda_lib, fb, attn, world_dir, card))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
@@ -2852,13 +3042,17 @@ def main():
                            "training_launches": train_launches[kernel] if not suffix else 0,
                            "evaluation_launches": eval_launches.get((kernel, dt), 0),
                            "surface_launches": surface_launches.get((kernel, dt), 0),
-                           "data_prep_launches": prep_launches.get((kernel, dt), 0)})
+                           "data_prep_launches": prep_launches.get((kernel, dt), 0),
+                           "export_launches": export_launches.get(kernel, 0) if not suffix
+                           else 0})
     check(all(r["evaluation_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched on the evaluation path")
     check(all(r["surface_launches"] > 0 for r in report[:2 * len(KERNELS)]),
           "a float32 or bf16 kernel was not launched on the surface paths")
     check(all(r["data_prep_launches"] > 0 for r in report[:2]),
           "the block or conv kernel was not launched by the data-preparation encode")
+    check(all(r["export_launches"] > 0 for r in report[:2]),
+          "the loaded decoder program launched no block or conv kernel")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@
 
 Commands import lazily, so ``--help`` stays fast.  Every command that runs
 work on a device (a model, or the dataset builders' Laplacian encode) runs
-it on the card unless it is given ``--device cpu``; ``define-splits`` and
+it on the card unless it is given ``--device cpu`` (``onnx-export`` its
+verifying forward, ``export`` its trace and check); ``define-splits`` and
 ``build-synthetic-stats`` run on the host.  ``api`` and
 ``mc-api`` are argparse programs: the group hands them the rest of the
 command line unchanged (``api --help`` is theirs).
@@ -52,6 +53,9 @@ cli = LazyGroup(
         "tiff-export": "terrain_diffusion_tpu_torch.serving.tiff_export:main",
         # benchmarks
         "latency": "terrain_diffusion_tpu_torch.evaluation.latency:main",
+        # export
+        "onnx-export": "terrain_diffusion_tpu_torch.export.onnx_export:main",
+        "export": "terrain_diffusion_tpu_torch.export.torch_export:main",
     },
 )
 

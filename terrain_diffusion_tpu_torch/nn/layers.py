@@ -8,10 +8,22 @@ names follow the reference state dict (``conv_res0.weight``, ``emb_gain``,
 Forced weight normalization (EDM2): every forward normalizes the stored
 weight globally, then scales it by gain / sqrt(fan_in).
 
-Routing: a default-conv residual block whose output map has at least
+Block options (JAX ``unet_block_init`` / ``unet_block_apply``):
+``conv_type`` "default" (3x3 then 3x3), "fused" (3x3 then 1x1) or "mobile"
+(a 1x1 ``conv_res0.0`` and a depthwise 3x3 ``conv_res0.1``, then 1x1),
+``expansion_factor`` (the middle width is out_channels times it),
+``no_padding`` (VALID convs, the residual cropped to the conv output),
+``activation`` "silu" or "leaky_relu" (slope 0.2, magnitude-preserving),
+and ``resample_type="conv"`` (``MPConvResample``: a learned stride-k conv or
+transposed conv blended with the parameter-free resample by
+``resample_skip_weight``, k = ``resample_filter``).
+
+Routing: a default-conv residual block (3x3 convs, expansion 1, SAME
+padding, silu; JAX's ``block_eligible``) whose output map has at least
 128 x 128 pixels runs its conv body through the hand-written fused block
 kernel (``ops/fused_block.py``), the JAX package's rule for its Pallas
-kernel without the TPU batch cutover; smaller maps run the plain path.
+kernel without the TPU batch cutover; smaller maps and every other block
+run the plain path, on every device.
 A block built with ``attention_impl="pallas"`` (the JAX package's value
 for its Pallas kernel, set through a model's ``block_kwargs``) runs its
 attention core through the hand-written attention kernel
@@ -45,7 +57,8 @@ from terrain_diffusion_tpu_torch.ops.attention import (attention_eligible,
                                                        pixelnorm_attention_reference)
 from terrain_diffusion_tpu_torch.ops.cuda_lib import autograd_live
 from terrain_diffusion_tpu_torch.ops.fused_block import fused_block
-from terrain_diffusion_tpu_torch.ops.nhwc import conv2d_nhwc, oihw_to_hwio
+from terrain_diffusion_tpu_torch.ops.nhwc import (conv2d_nhwc, conv_transpose2d_nhwc,
+                                                 oihw_to_hwio)
 
 FUSED_MIN_PIXELS = 128 * 128
 
@@ -55,12 +68,17 @@ def _randn(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 class MPConv(nn.Module):
-    """Magnitude-preserving conv (kernel () == linear layer)."""
+    """Magnitude-preserving conv (kernel () == linear layer); ``groups``
+    and ``no_padding`` (VALID instead of SAME) as in JAX's
+    ``mp_conv_apply``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel=(), *,
-                 device, generator: torch.Generator):
+                 device, generator: torch.Generator, groups: int = 1,
+                 no_padding: bool = False):
         super().__init__()
-        shape = (out_channels, in_channels, *kernel)
+        self.groups = groups
+        self.no_padding = no_padding
+        shape = (out_channels, in_channels // groups, *kernel)
         self.weight = nn.Parameter(_randn(shape, generator, device))
 
     def prepared_weight(self, gain=1.0) -> torch.Tensor:
@@ -73,7 +91,38 @@ class MPConv(nn.Module):
         w = self.prepared_weight(gain).to(x.dtype)
         if w.dim() == 2:
             return torch.matmul(x, w.t())
-        return conv2d_nhwc(x, w, padding=w.shape[-1] // 2)
+        return conv2d_nhwc(x, w, padding=0 if self.no_padding else w.shape[-1] // 2,
+                           groups=self.groups)
+
+
+class MPConvResample(nn.Module):
+    """Learned resampling (JAX ``mp_conv_resample_init`` / ``_apply``): a
+    k x k conv of stride k ("down", weight (out, in, k, k)) or a transposed
+    conv of stride k ("up", weight (in, out, k, k)), mp_sum'd with the
+    parameter-free resample by factor k.  The weight starts at ones, as in
+    JAX.  JAX's ``conv_transpose`` does not flip its kernel, so the "up"
+    weight runs flipped through ``conv_transpose2d``."""
+
+    def __init__(self, resample_mode: str, kernel: int, in_channels: int,
+                 out_channels: int, *, device):
+        super().__init__()
+        if resample_mode not in ("up", "down"):
+            raise ValueError("resample_mode must be 'up' or 'down'")
+        self.resample_mode = resample_mode
+        shape = ((out_channels, in_channels) if resample_mode == "down"
+                 else (in_channels, out_channels)) + (kernel, kernel)
+        self.weight = nn.Parameter(torch.ones(shape, device=device))
+
+    def forward(self, x: torch.Tensor, skip_weight: float) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        c_in = self.weight.shape[1 if self.resample_mode == "down" else 0]
+        w = mp.normalize(self.weight) * (1.0 / math.sqrt(k * k * c_in))
+        w = w.to(x.dtype)
+        if self.resample_mode == "down":
+            y = conv2d_nhwc(x, w, stride=k)
+        else:
+            y = conv_transpose2d_nhwc(x, w.flip(-2, -1), stride=k)
+        return mp.mp_sum([y, resample(x, self.resample_mode, factor=k)], w=float(skip_weight))
 
 
 class MPFourier(nn.Module):
@@ -124,6 +173,12 @@ def resample(x: torch.Tensor, mode: str = "keep", factor: int = 2) -> torch.Tens
     raise ValueError(f"unknown resample mode {mode}")
 
 
+_ACTIVATIONS = {
+    "silu": mp.mp_silu,
+    "leaky_relu": lambda x: mp.mp_leaky_relu(x, 0.2),
+}
+
+
 def normalize_weights_(model: nn.Module) -> None:
     """Forced weight normalization after an optimizer update: every MP
     weight (each parameter of ndim >= 2: the conv, linear and embedding
@@ -144,17 +199,15 @@ class UNetBlock(nn.Module):
                  channels_per_head: int = 64, res_balance: float = 0.3,
                  attn_balance: float = 0.3, clip_act=256.0,
                  conv_type: str = "default", resample_type: str = "pooling",
+                 resample_filter: int = 4, resample_skip_weight: float = 0.5,
                  expansion_factor: int = 1, no_padding: bool = False,
                  activation: str = "silu", attention_impl: str = "xla",
                  dropout: float = 0.0, **_unused):
         super().__init__()
-        if conv_type != "default" or expansion_factor != 1 or no_padding \
-                or activation != "silu":
-            raise NotImplementedError(
-                "only conv_type='default', expansion_factor=1, SAME padding and "
-                "silu blocks are ported")
-        if resample_type == "conv" and resample_mode != "keep":
-            raise NotImplementedError("learned conv resampling is not ported")
+        if conv_type not in ("default", "fused", "mobile"):
+            raise ValueError(f"unknown conv_type {conv_type!r}")
+        if activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
         self.mode = mode
         self.resample_mode = resample_mode
         self.res_balance = float(res_balance)
@@ -162,15 +215,32 @@ class UNetBlock(nn.Module):
         self.clip_act = clip_act
         self.attention_impl = attention_impl
         self.dropout = float(dropout)
+        self.conv_type = conv_type
+        self.no_padding = bool(no_padding)
+        self.act = _ACTIVATIONS[activation]
+        self.resample_skip_weight = float(resample_skip_weight)
+        # JAX's block_eligible: the kernel covers only the default block
+        self.kernel_block = (conv_type == "default" and expansion_factor == 1
+                             and not no_padding and activation == "silu")
         # attention disables when out_channels < channels_per_head (no heads)
         self.num_heads = out_channels // channels_per_head if attention else 0
         kw = dict(device=device, generator=generator)
         self.emb_gain = nn.Parameter(torch.zeros((), device=device))
-        self.conv_res0 = MPConv(out_channels if mode == "enc" else in_channels,
-                                out_channels, (3, 3), **kw)
-        self.emb_linear = (MPConv(emb_channels, out_channels, (), **kw)
+        self.resample = (MPConvResample(resample_mode, resample_filter, in_channels,
+                                        out_channels, device=device)
+                         if resample_type == "conv" and resample_mode != "keep" else None)
+        c0 = out_channels if mode == "enc" else in_channels
+        mid = out_channels * expansion_factor
+        valid = dict(kw, no_padding=self.no_padding)
+        if conv_type == "mobile":  # 1x1, then depthwise 3x3
+            self.conv_res0 = nn.Sequential(MPConv(c0, mid, (1, 1), **kw),
+                                           MPConv(mid, mid, (3, 3), groups=mid, **valid))
+        else:
+            self.conv_res0 = MPConv(c0, mid, (3, 3), **valid)
+        self.emb_linear = (MPConv(emb_channels, mid, (), **kw)
                            if emb_channels > 0 else None)
-        self.conv_res1 = MPConv(out_channels, out_channels, (3, 3), **kw)
+        self.conv_res1 = MPConv(mid, out_channels,
+                                (3, 3) if conv_type == "default" else (1, 1), **valid)
         self.conv_skip = (MPConv(in_channels, out_channels, (1, 1), **kw)
                           if in_channels != out_channels else None)
         if self.num_heads > 0:
@@ -224,10 +294,13 @@ class UNetBlock(nn.Module):
         h, w = x.shape[1], x.shape[2]
         f = {"up": 2.0, "down": 0.5}.get(self.resample_mode, 1.0)
         kernels = not training and not autograd_live(x, emb, skip, *self.parameters())
-        fused = kernels and (h * f) * (w * f) >= FUSED_MIN_PIXELS
+        fused = kernels and self.kernel_block and (h * f) * (w * f) >= FUSED_MIN_PIXELS
         # the parameter-free nearest-up runs inside the fused kernel
-        defer_up = fused and self.resample_mode == "up" and skip is None
-        if not defer_up:
+        defer_up = (fused and self.resample_mode == "up" and skip is None
+                    and self.resample is None)
+        if self.resample is not None:
+            x = self.resample(x, self.resample_skip_weight)
+        elif not defer_up:
             x = resample(x, self.resample_mode)
         if fused:
             x2 = scales = None
@@ -243,11 +316,15 @@ class UNetBlock(nn.Module):
             if self.conv_skip is not None:
                 x = self.conv_skip(x)
             x = mp.normalize(x, dim=-1)  # pixel norm over channels
-        y = self.conv_res0(mp.mp_silu(x))
-        if self.emb_linear is not None and emb is not None:
-            y = mp.mp_silu(y * self._emb_scale(emb)[:, None, None, :].to(y.dtype))
+        act = self.act
+        if self.conv_type == "mobile":
+            y = self.conv_res0[1](act(self.conv_res0[0](act(x))))
         else:
-            y = mp.mp_silu(y)
+            y = self.conv_res0(act(x))
+        if self.emb_linear is not None and emb is not None:
+            y = act(y * self._emb_scale(emb)[:, None, None, :].to(y.dtype))
+        else:
+            y = act(y)
         if training and self.dropout > 0 and dropout_seed is not None:
             mask_gen = torch.Generator(device=y.device).manual_seed(int(dropout_seed))
             keep = torch.rand(y.shape, generator=mask_gen, device=y.device) < 1.0 - self.dropout
@@ -255,6 +332,9 @@ class UNetBlock(nn.Module):
         y = self.conv_res1(y)
         if self.mode == "dec" and self.conv_skip is not None:
             x = self.conv_skip(x)
+        if x.shape[1:3] != y.shape[1:3]:  # no_padding: crop the residual
+            dh, dw = x.shape[1] - y.shape[1], x.shape[2] - y.shape[2]
+            x = x[:, dh // 2:x.shape[1] - (dh - dh // 2), dw // 2:x.shape[2] - (dw - dw // 2)]
         x = mp.mp_sum([x, y], w=self.res_balance)
         if self.num_heads > 0:
             x = mp.mp_sum([x, self._attention(x, kernels)], w=self.attn_balance)

@@ -5,6 +5,8 @@
   ``Perceptron`` as this package's state dict - HWIO -> OIHW for conv
   weights, (in, out) -> (out, in) for linear weights, names from the same
   tables as the JAX package's torch-compat name maps (``name_map``).
+  ``params_to_jax(model)`` is its inverse (the ONNX exporter folds weights
+  from these arrays, exactly as the JAX exporter does).
 - ``load_model`` / ``save_model``: the reference directory layout
   (``config.json`` + ``model.safetensors`` in reference state-dict naming)
   for the three classes, chosen by the config's ``_class_name``.
@@ -22,6 +24,21 @@ from terrain_diffusion_tpu_torch.nn.edm_autoencoder import (EDMAutoencoder,
                                                            EDMAutoencoderConfig)
 from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
 from terrain_diffusion_tpu_torch.nn.perceptron import Perceptron, PerceptronConfig
+
+
+def _conv_res0_entries(prefix, tree_prefix, merged):
+    """The learned resample (down (O, I, k, k) / up (I, O, k, k) as HWIO /
+    HWOI) and the first conv (a 1x1 and a depthwise 3x3 when mobile) of a
+    block with options ``merged``."""
+    out = []
+    if merged.get("resample_type") == "conv" and merged.get("resample_mode", "keep") != "keep":
+        out.append((f"{prefix}.resample.weight", tree_prefix + ("resample", "w"), False))
+    if merged.get("conv_type", "default") == "mobile":
+        out.append((f"{prefix}.conv_res0.0.weight", tree_prefix + ("conv_res0_pw", "w"), False))
+        out.append((f"{prefix}.conv_res0.1.weight", tree_prefix + ("conv_res0_dw", "w"), False))
+    else:
+        out.append((f"{prefix}.conv_res0.weight", tree_prefix + ("conv_res0", "w"), False))
+    return out
 
 
 def unet_name_map(model: EDMUnet2D):
@@ -48,8 +65,8 @@ def unet_name_map(model: EDMUnet2D):
 
     def block_entries(prefix, tree_prefix, opts, cin, cout):
         merged = {**cfg.block_kwargs, **opts}
-        entries = [(f"{prefix}.emb_gain", tree_prefix + ("emb_gain",), False),
-                   (f"{prefix}.conv_res0.weight", tree_prefix + ("conv_res0", "w"), False)]
+        entries = [(f"{prefix}.emb_gain", tree_prefix + ("emb_gain",), False)]
+        entries += _conv_res0_entries(prefix, tree_prefix, merged)
         if model.emb_ch > 0:
             entries.append((f"{prefix}.emb_linear.weight", tree_prefix + ("emb_linear", "w"), True))
         entries.append((f"{prefix}.conv_res1.weight", tree_prefix + ("conv_res1", "w"), False))
@@ -86,7 +103,7 @@ def autoencoder_name_map(model: EDMAutoencoder):
         prefix, tp = f"decoder.{idx}", ("decoder", name)
         merged = {**cfg.block_kwargs, **opts}
         out += [(f"{prefix}.emb_gain", tp + ("emb_gain",), False),
-                (f"{prefix}.conv_res0.weight", tp + ("conv_res0", "w"), False),
+                *_conv_res0_entries(prefix, tp, merged),
                 (f"{prefix}.conv_res1.weight", tp + ("conv_res1", "w"), False)]
         if cin != cout:
             out.append((f"{prefix}.conv_skip.weight", tp + ("conv_skip", "w"), False))
@@ -135,6 +152,31 @@ def params_from_jax(model, tree: dict) -> dict:
             arr = arr.T
         state[tname] = torch.from_numpy(np.array(arr, np.float32))
     return state
+
+
+def params_to_jax(model) -> dict:
+    """The inverse of ``params_from_jax``: ``model``'s state as the JAX
+    package's parameter pytree of contiguous float32 numpy arrays (OIHW ->
+    HWIO, (out, in) -> (in, out)), through the same name map."""
+    state = model.state_dict()
+    tree: dict = {}
+    for tname, path, linear in name_map(model):
+        arr = state[tname].detach().to("cpu", torch.float32).numpy()
+        if arr.ndim == 4:  # OIHW -> HWIO
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        elif arr.ndim == 2 and linear:  # (out, in) -> (in, out)
+            arr = arr.T
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(arr, np.float32, order="C")
+    # a U-Net's tree has its "enc" and "dec" levels even where one is empty
+    # (an encode-only net: the autoencoder's encoder)
+    for unet, sub in ((EDMUnet2D, tree), (EDMAutoencoder, tree.get("encoder"))):
+        if isinstance(model, unet):
+            sub.setdefault("enc", {})
+            sub.setdefault("dec", {})
+    return tree
 
 
 def load_model(path: str, *, device):

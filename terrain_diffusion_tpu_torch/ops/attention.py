@@ -3,7 +3,8 @@ wrapper and the plain PyTorch version.
 
 Counterpart of ``terrain_diffusion_tpu.ops.pallas_attention``:
 
-- ``fused_pixelnorm_attention(qkv, num_heads)`` launches
+- ``fused_pixelnorm_attention(qkv, num_heads)`` calls the operator
+  ``tdt::pixelnorm_attention`` (``cuda_lib.register_op``), which launches
   ``csrc/attention.cu`` (the counterpart of the Pallas kernel
   ``fused_pixelnorm_attention``) for a CUDA tensor, and computes
   ``pixelnorm_attention_reference`` for a CPU tensor.  It counts its
@@ -42,7 +43,8 @@ import torch
 
 from terrain_diffusion_tpu_torch.ops.cuda_lib import (DTYPE_CODES, check_input, check_rc,
                                                       count_launch, counted, kernel_dtype,
-                                                      load, refuse_autograd, stream)
+                                                      load, refuse_autograd, register_op,
+                                                      stream)
 
 TENSOR_CORE_CHANNELS = (16, 32, 64)  # csrc/attention.cu's pixelnorm_attention_tc<CH>
 
@@ -103,8 +105,11 @@ def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
     """(N, H, W, 3C) float32, bfloat16 or float16 qkv -> (N, H, W, C) attention
     output in qkv's type."""
     refuse_autograd("fused_pixelnorm_attention", qkv)
-    if qkv.device.type == "cpu":
-        return pixelnorm_attention_reference(qkv, num_heads, eps)
+    return ATTENTION_OP(qkv, int(num_heads), float(eps))
+
+
+def _attention_cuda(qkv: torch.Tensor, num_heads: int, eps: float) -> torch.Tensor:
+    """``tdt::pixelnorm_attention`` on the card: checks and one launch."""
     dt = kernel_dtype("qkv", qkv)
     check_input("qkv", qkv, qkv.device, 4, dt)
     n, h, w, c3 = qkv.shape
@@ -121,3 +126,9 @@ def fused_pixelnorm_attention(qkv: torch.Tensor, num_heads: int,
              "fused_pixelnorm_attention")
     count_launch(fused_pixelnorm_attention, dt)
     return out
+
+
+ATTENTION_OP = register_op(
+    "pixelnorm_attention(Tensor qkv, int num_heads, float eps) -> Tensor",
+    cuda=_attention_cuda, cpu=pixelnorm_attention_reference,
+    meta=lambda qkv, num_heads, eps: qkv.new_empty((*qkv.shape[:3], qkv.shape[3] // 3)))

@@ -16,6 +16,16 @@ The kernels define no backward, as the Pallas kernels define no VJP: every
 wrapper calls ``refuse_autograd`` first, on any device, so that a tensor
 without ``grad_fn`` is never returned where autograd records; the models
 route such forwards to the plain versions by ``autograd_live``.
+
+Each kernel is a PyTorch operator of the ``tdt`` namespace
+(``register_op``): ``tdt::fused_block``, ``tdt::conv3x3`` and
+``tdt::pixelnorm_attention``.  Its CUDA implementation is the launch code
+(checks, weight preparation, launch, ``count_launch``), its CPU
+implementation the plain version, and its Meta implementation the output's
+shape and type, so that fake tensors and ``torch.export`` trace it as one
+node.  The wrappers call the operator, so eager code and an exported
+program reach the kernels by the same route; a program saved by
+``torch.export.save`` loads where this package is imported.
 """
 from __future__ import annotations
 
@@ -82,6 +92,22 @@ def reset_launch_counts():
     for fn in _COUNTED:
         fn.launches = 0
         fn.launches_by_dtype = {}
+
+
+# the low-level registration: its dispatch costs a few microseconds a call
+# on the host, torch.library.custom_op's several times that
+OPS = torch.library.Library("tdt", "DEF")
+
+
+def register_op(schema: str, *, cuda, cpu, meta):
+    """Define the operator ``tdt::<name>`` by ``schema`` (``"<name>(...) ->
+    Tensor"``) with its CUDA, CPU and Meta implementations; returns its
+    overload, ``torch.ops.tdt.<name>.default``."""
+    name = schema.split("(", 1)[0]
+    OPS.define(schema)
+    for fn, key in ((cuda, "CUDA"), (cpu, "CPU"), (meta, "Meta")):
+        OPS.impl(name, fn, key)
+    return getattr(torch.ops.tdt, name).default
 
 
 def _nvcc() -> str:

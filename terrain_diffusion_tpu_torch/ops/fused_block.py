@@ -33,9 +33,10 @@ type picks the form, as ``x.dtype`` does for the Pallas kernels:
 ``fused_block_reference`` / ``conv3x3_reference`` take the same arguments
 and compute the same math, rounding at the same points, with ``F.conv2d``
 and tensor ops in float32 (float64 for a float64 input, an exact oracle).
-A wrapper uses its plain version only for a tensor that lies on the CPU;
-for a CUDA tensor it launches its kernel or raises, and a 16-bit tensor
-never goes to the float32 kernel.  On any device a wrapper raises
+Each wrapper calls its operator (``tdt::fused_block``, ``tdt::conv3x3``;
+``cuda_lib.register_op``), which runs the plain version only for a tensor
+that lies on the CPU; for a CUDA tensor it launches its kernel or raises,
+and a 16-bit tensor never goes to the float32 kernel.  On any device a wrapper raises
 RuntimeError where autograd would record through an input (the kernels
 define no backward, ``cuda_lib.refuse_autograd``).  Each wrapper counts its launches in a
 plain integer attribute (``fused_block.launches``, ``conv3x3.launches``).
@@ -50,7 +51,8 @@ import torch
 
 from terrain_diffusion_tpu_torch.ops.cuda_lib import (DTYPE_CODES, check_input, check_rc,
                                                       count_launch, counted, kernel_dtype,
-                                                      load, ptr, refuse_autograd, stream)
+                                                      load, ptr, refuse_autograd,
+                                                      register_op, stream)
 from terrain_diffusion_tpu_torch.ops.nhwc import conv2d_nhwc, hwio_to_oihw
 
 INV_SILU_GAIN = 1.0 / 0.596  # mp_silu divisor, folded into the conv weights
@@ -151,8 +153,11 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Cin, Cout) prepared HWIO weight (normalized, fan-in scaled, gain folded;
     float32, or x's type); the output is in x's type."""
     refuse_autograd("conv3x3", x, w)
-    if x.device.type == "cpu":
-        return conv3x3_reference(x, w)
+    return CONV3X3_OP(x, w)
+
+
+def _conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``tdt::conv3x3`` on the card: checks, weight layout, one launch."""
     dt = kernel_dtype("x", x)
     check_input("x", x, x.device, 4, dt)
     _check_weight("w", w, x, 4)
@@ -169,6 +174,11 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                               DTYPE_CODES[dt], stream(x.device)), "conv3x3")
     count_launch(conv3x3, dt)
     return y
+
+
+CONV3X3_OP = register_op(
+    "conv3x3(Tensor x, Tensor w) -> Tensor", cuda=_conv3x3_cuda, cpu=conv3x3_reference,
+    meta=lambda x, w: x.new_empty((*x.shape[:3], w.shape[3])))
 
 
 # ---------------------------------------------------------------------------
@@ -241,15 +251,35 @@ def fused_block(x, w0, w1, c, wskip=None, x2=None, *, mode="enc",
              (the dec skip join).
 
     Weights are float32 (or already in x's type).  The 1/0.596 mp_silu gain
-    is folded into w0/w1 here, in float32 before any rounding, so callers
-    pass plain normalized weights.
+    is folded into w0/w1 on the card, in float32 before any rounding, so
+    callers pass plain normalized weights.
     """
     refuse_autograd("fused_block", x, w0, w1, c, wskip, x2)
-    if x.device.type == "cpu":
-        return fused_block_reference(
-            x, w0, w1, c, wskip, x2, mode=mode, pixel_norm=pixel_norm,
-            res_balance=res_balance, clip_act=clip_act,
-            concat_scales=concat_scales, pre_upsample=pre_upsample)
+    return FUSED_BLOCK_OP(
+        x, w0, w1, c, wskip, x2, mode, bool(pixel_norm), float(res_balance),
+        None if clip_act is None else float(clip_act),
+        None if concat_scales is None else [float(s) for s in concat_scales],
+        int(pre_upsample))
+
+
+def _fused_block_cpu(x, w0, w1, c, wskip, x2, mode, pixel_norm, res_balance, clip_act,
+                     concat_scales, pre_upsample):
+    return fused_block_reference(
+        x, w0, w1, c, wskip, x2, mode=mode, pixel_norm=pixel_norm, res_balance=res_balance,
+        clip_act=clip_act, concat_scales=concat_scales, pre_upsample=pre_upsample)
+
+
+def _fused_block_meta(x, w0, w1, c, wskip, x2, mode, pixel_norm, res_balance, clip_act,
+                      concat_scales, pre_upsample):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h * pre_upsample, w * pre_upsample, w1.shape[3]))
+
+
+def _fused_block_cuda(x, w0, w1, c, wskip, x2, mode, pixel_norm, res_balance, clip_act,
+                      concat_scales, pre_upsample):
+    """``tdt::fused_block`` on the card: checks, the weights' preparation
+    (the silu gain folded in; K-major and rounded for a 16-bit x), the
+    gain ``c`` of ones where None, and the block's launches, counted as one."""
     dev = x.device
     dt = kernel_dtype("x", x)
     u = int(pre_upsample)
@@ -361,3 +391,10 @@ def fused_block(x, w0, w1, c, wskip=None, x2=None, *, mode="enc",
         float(clip_act) if clip_act is not None else 0.0, code, strm), "fused_block conv1")
     count_launch(fused_block, dt)
     return out
+
+
+FUSED_BLOCK_OP = register_op(
+    "fused_block(Tensor x, Tensor w0, Tensor w1, Tensor? c, Tensor? wskip, Tensor? x2, "
+    "str mode, bool pixel_norm, float res_balance, float? clip_act, float[]? concat_scales, "
+    "int pre_upsample) -> Tensor",
+    cuda=_fused_block_cuda, cpu=_fused_block_cpu, meta=_fused_block_meta)

@@ -36,6 +36,11 @@ def mp_silu(x: torch.Tensor) -> torch.Tensor:
     return (x * torch.sigmoid(x)) / 0.596
 
 
+def mp_leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    factor = math.sqrt((1 + alpha ** 2) / 2)
+    return torch.where(x >= 0, x, alpha * x) / factor
+
+
 def _resolve_weights(n: int, w) -> np.ndarray:
     if w is None:
         return np.full((n,), 1.0 / n, dtype=np.float64)

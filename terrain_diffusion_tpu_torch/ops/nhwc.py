@@ -12,9 +12,18 @@ import torch.nn.functional as F
 
 
 def conv2d_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, padding: int = 0,
-                groups: int = 1) -> torch.Tensor:
+                groups: int = 1, stride: int = 1) -> torch.Tensor:
     """conv2d of NHWC `x` with an OIHW weight; returns NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=padding, groups=groups)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=padding, groups=groups,
+                 stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose2d_nhwc(x: torch.Tensor, w_iohw: torch.Tensor,
+                          stride: int) -> torch.Tensor:
+    """Transposed conv of NHWC `x` with an (in, out, kh, kw) weight, no
+    padding; returns NHWC."""
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w_iohw, stride=stride)
     return y.permute(0, 2, 3, 1)
 
 

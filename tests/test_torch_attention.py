@@ -29,7 +29,7 @@ from terrain_diffusion_tpu_torch import use_full_f32
 from terrain_diffusion_tpu_torch.nn import layers
 from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
 from terrain_diffusion_tpu_torch.nn.layers import UNetBlock
-from terrain_diffusion_tpu_torch.nn.torch_compat import params_from_jax
+from terrain_diffusion_tpu_torch.nn.torch_compat import params_from_jax, params_to_jax
 from terrain_diffusion_tpu_torch.ops import attention, cuda_lib
 
 use_full_f32()
@@ -38,6 +38,17 @@ UNET_TOL = 1e-4
 # (qkv shape with C channels, heads): the JAX test shapes and the base
 # model's 12 heads of 64 channels
 SHAPES = [((2, 8, 8, 64), 1), ((1, 16, 16, 128), 2), ((2, 8, 8, 768), 12)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rel(got, want):
@@ -232,7 +243,10 @@ def test_fused_tail_routes_attention(monkeypatch):
 
 def test_base_unet_with_midblock_attention_matches_jax(rng, monkeypatch):
     """A narrow base U-Net (64 px latents, midblock attention at 8x8 with
-    4 heads) built with attention_impl="pallas", against the JAX model."""
+    4 heads) built with attention_impl="pallas", against the JAX model.
+    The weights are the port's seeded init, given to JAX through
+    ``params_to_jax`` (JAX's own init compiles one program per weight
+    shape), and the JAX forward is jitted: one compile, not one per op."""
     calls = _count_kernel_calls(monkeypatch)
     block_kwargs = {"channels_per_head": 8, "attention_impl": "pallas", "dropout": 0.1}
     jcfg = JaxEDMUnetConfig(
@@ -242,12 +256,13 @@ def test_base_unet_with_midblock_attention_matches_jax(rng, monkeypatch):
         conditional_inputs=(("tensor", 58, 1.0),), fourier_scale="pos",
         noise_emb_dims=8, logvar_channels=8, block_kwargs=block_kwargs)
     jmodel = JaxEDMUnet2D(jcfg)
-    jparams = dict(jmodel.init(jax.random.key(5)), out_gain=jnp.asarray(0.8))
+    cfg = EDMUnetConfig.from_dict({**jcfg.to_dict(), "block_kwargs": block_kwargs})
+    init = EDMUnet2D(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    jparams = dict(params_to_jax(init), out_gain=np.float32(0.8))
     x = rng.standard_normal((2, 64, 64, 5)).astype(np.float32)
     cond = rng.standard_normal((2, 58)).astype(np.float32)
     nl = np.full((2,), 0.9, np.float32)
-    want = jmodel.apply(jparams, x, nl, [cond])
-    cfg = EDMUnetConfig.from_dict({**jcfg.to_dict(), "block_kwargs": block_kwargs})
+    want = jax.jit(lambda p, x, n, c: jmodel.apply(p, x, n, c))(jparams, x, nl, [cond])
     model = EDMUnet2D(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     model.load_state_dict(params_from_jax(model, jparams))
     with torch.no_grad():

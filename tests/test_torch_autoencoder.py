@@ -60,11 +60,13 @@ def _pair(direct_skips=(), seed=0):
                     layers_per_block_decoder=2, midblock_attention=True, logvar_channels=8,
                     direct_skips=direct_skips, block_kwargs={"channels_per_head": 8})
     jm = JaxAutoencoder(cfg)
-    params = _lively(jm.init(jax.random.key(seed)), np.random.default_rng(seed))
+    pcfg = EDMAutoencoderConfig.from_dict(cfg.to_dict() | {"block_kwargs": cfg.block_kwargs})
+    # the port's seeded init as JAX's tree (JAX's own init compiles one
+    # program per weight shape), crossing back through params_from_jax
+    init = EDMAutoencoder(pcfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    params = _lively(torch_compat.params_to_jax(init), np.random.default_rng(seed))
     params["logvar"] = jnp.asarray([-0.7])
-    pm = EDMAutoencoder(EDMAutoencoderConfig.from_dict(cfg.to_dict() | {
-        "block_kwargs": cfg.block_kwargs}), device="cpu",
-        generator=torch.Generator().manual_seed(1))
+    pm = EDMAutoencoder(pcfg, device="cpu", generator=torch.Generator().manual_seed(seed + 1))
     pm.load_state_dict(torch_compat.params_from_jax(pm, params))
     return jm, params, pm.eval()
 

@@ -30,6 +30,17 @@ DECODER_CIN = (64, 128, 192, 256, 320, 384, 448)
 DECODER_COUT = (64, 128, 192, 256)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def launches16(x, w0, w1, c, wskip=None, x2=None, *, mode="enc", pixel_norm=True,
                res_balance=0.3, clip_act=256.0, concat_scales=None, pre_upsample=1):
     """The 16-bit block launch by launch, each in plain torch (float32 sums

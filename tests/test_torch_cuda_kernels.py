@@ -11,6 +11,11 @@ float64 on the CPU.  Shapes are small and deliberately ragged (maps that are
 not a multiple of the 8 x 16 pixel tile, channel counts off the tile
 widths: Cin 5, 6, 33, Cout 1, 3, 8, 40).
 
+The registered operators (``test_registered_operators_on_the_card``): each
+kernel's operator, through the dispatcher, equals its launch code called
+directly and its wrapper bit for bit; its Meta implementation gives the
+output's shape and type.
+
 The training path (``test_wrappers_refuse_autograd_on_the_card``,
 ``test_training_forward_on_the_card_takes_the_plain_path``): the wrappers
 raise where autograd would record, and a training forward launches no
@@ -534,6 +539,46 @@ def test_kernels_route_by_dtype(dev):
         assert _rel(got.float(), want.float()) < TOL16[half]
     assert (fb.conv3x3.launches, fb.fused_block.launches) == (3, 3)
     assert attention.fused_pixelnorm_attention.launches == 5
+
+
+def test_registered_operators_on_the_card(dev):
+    """Each kernel's operator (tdt::fused_block, tdt::conv3x3,
+    tdt::pixelnorm_attention): through the dispatcher, its CUDA
+    implementation equals the launch code called directly and the wrapper,
+    bit for bit, each call counting one launch; its Meta implementation
+    gives the CUDA output's shape and type; and a CPU tensor runs the plain
+    version."""
+    g = torch.Generator().manual_seed(13)
+    x = _rand(g, (2, 24, 40, 32), dev)
+    x2 = _rand(g, (2, 24, 40, 32), dev)
+    w0 = _rand(g, (3, 3, 64, 32), dev, (9 * 64) ** -0.5)
+    w1 = _rand(g, (3, 3, 32, 32), dev, (9 * 32) ** -0.5)
+    wskip = _rand(g, (64, 32), dev, 64 ** -0.5)
+    wc = _rand(g, (3, 3, 32, 1), dev, (9 * 32) ** -0.5)
+    qkv = _rand(g, (2, 8, 8, 192), dev, 3.0)
+    block = ("dec", False, 0.3, 256.0, [0.7, 0.3], 1)
+    cases = [  # (wrapper call, operator, its arguments, the launch code, counter)
+        (lambda: fb.fused_block(x, w0, w1, None, wskip, x2, mode="dec", pixel_norm=False,
+                                concat_scales=(0.7, 0.3)),
+         torch.ops.tdt.fused_block.default, (x, w0, w1, None, wskip, x2, *block),
+         fb._fused_block_cuda, fb.fused_block),
+        (lambda: fb.conv3x3(x, wc), torch.ops.tdt.conv3x3.default, (x, wc), fb._conv3x3_cuda,
+         fb.conv3x3),
+        (lambda: attention.fused_pixelnorm_attention(qkv, 2),
+         torch.ops.tdt.pixelnorm_attention.default, (qkv, 2, 1e-4), attention._attention_cuda,
+         attention.fused_pixelnorm_attention),
+    ]
+    for call, op, args, launch, counter in cases:
+        before = counter.launches
+        got, direct, wrapped = op(*args), launch(*args), call()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 3
+        assert torch.equal(got, direct) and torch.equal(got, wrapped)
+        meta = op(*[a.to("meta") if isinstance(a, torch.Tensor) else a for a in args])
+        assert meta.shape == got.shape and meta.dtype == got.dtype
+        plain = op(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+        assert counter.launches == before + 3  # the CPU runs the plain version
+        assert _rel(got.cpu(), plain) < TOL
 
 
 def test_wrappers_refuse_autograd_on_the_card(dev):

@@ -11,6 +11,17 @@ from terrain_diffusion_tpu_torch.serving import minecraft_api as mc
 SERVERS = pytest.mark.parametrize("server", [api, mc], ids=["api", "minecraft_api"])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_world_pipeline_defaults_to_the_card():
     # __init__ allocates nothing, so this holds on a machine without a card
     assert WorldPipeline(seed=1).device.type == "cuda"

@@ -42,6 +42,17 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2.5e-3}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / np.abs(want).max())

@@ -38,6 +38,17 @@ KW = dict(seed=1234, latents_batch_size=[1, 2, 4], decoder_tile_size=64,
 QUERIES = [(0, 0, 24, 24), (8, -16, 32, 8)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lively(tree):
     """Params with nonzero gains (init leaves them 0: constant networks)."""
     if not isinstance(tree, dict):

@@ -50,6 +50,17 @@ KW = dict(seed=4321, latents_batch_size=[1, 2, 4], decoder_tile_size=64,
 BASE_BLOCK_KWARGS = {"channels_per_head": 8, "attention_impl": "pallas"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _wsgi_get(app, path):
     from urllib.parse import urlsplit
 

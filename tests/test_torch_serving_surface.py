@@ -55,8 +55,8 @@ from terrain_diffusion_tpu_torch.serving.explorer import server as explorer
 SEED = 77
 KW = dict(latents_batch_size=[1, 2, 4], log_mode="info")
 COMMANDS = ["api", "azgaar-to-tiff", "build-base-dataset", "build-encoded-dataset",
-            "build-synthetic-stats", "define-splits", "explore", "generate", "latency", "mc-api",
-            "save-model", "tiff-export", "train"]
+            "build-synthetic-stats", "define-splits", "explore", "export", "generate", "latency",
+            "mc-api", "onnx-export", "save-model", "tiff-export", "train"]
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -38,6 +38,17 @@ KT = 64  # the attention kernel's key chunk
 LOG2E = 1.4426950408889634
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """cvt.rna.tf32.f32: keep 10 mantissa bits, nearest, ties away from zero
     (adding half of the dropped 13 bits' range to the magnitude bits)."""

@@ -38,6 +38,17 @@ use_full_f32()
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(got, want):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want, np.float64)

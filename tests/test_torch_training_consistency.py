@@ -11,12 +11,24 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from terrain_diffusion_tpu.training import diffusion_core as jcore
 
 from terrain_diffusion_tpu_torch.training import diffusion_core as core
 
 from test_torch_training_core import TOL, _batch, _grads, _jax_draws, _pair, _rel, _torch_batch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_terms(jm, jp, teacher, guide, b, key, cfg):

@@ -28,7 +28,7 @@ from terrain_diffusion_tpu_torch import use_full_f32
 from terrain_diffusion_tpu_torch.nn import edm_unet, layers
 from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
 from terrain_diffusion_tpu_torch.nn.layers import UNetBlock, normalize_weights_
-from terrain_diffusion_tpu_torch.nn.torch_compat import params_from_jax
+from terrain_diffusion_tpu_torch.nn.torch_compat import params_from_jax, params_to_jax
 from terrain_diffusion_tpu_torch.ops import attention, fused_block
 from terrain_diffusion_tpu_torch.training import diffusion_core as core
 from terrain_diffusion_tpu_torch.training.diffusion_core import trained_tensors
@@ -37,6 +37,17 @@ use_full_f32()
 TOL = 1e-4
 LOSS_TOL = 1e-5
 STEP_TOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rel(got, want):
@@ -62,9 +73,12 @@ def _pair(out_ch=1, cond_ch=4, cond_inputs=(), size=16, seed=0, **block_kwargs):
         midblock_attention=False, concat_balance=0.5, conditional_inputs=cond_inputs,
         fourier_scale="pos", noise_emb_dims=8, logvar_channels=8, block_kwargs=block_kwargs)
     jm = JaxEDMUnet2D(jcfg)
-    jp = _lively(jm.init(jax.random.key(seed)))
-    pm = EDMUnet2D(EDMUnetConfig.from_dict(jcfg.to_dict()), device="cpu",
-                   generator=torch.Generator().manual_seed(seed))
+    cfg = EDMUnetConfig.from_dict(jcfg.to_dict())
+    # the port's seeded init as JAX's tree (JAX's own init compiles one
+    # program per weight shape), crossing back through params_from_jax
+    jp = _lively(params_to_jax(EDMUnet2D(cfg, device="cpu",
+                                         generator=torch.Generator().manual_seed(seed))))
+    pm = EDMUnet2D(cfg, device="cpu", generator=torch.Generator().manual_seed(seed + 1))
     pm.load_state_dict(params_from_jax(pm, jp))
     trained_tensors(pm)  # JAX's parameter tree: the Fourier buffers train too
     return jm, jp, pm.train()

@@ -35,6 +35,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT = 1e-7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def h5_file(tmp_path_factory):
     """A tiny dataset in the reference schema:

@@ -33,6 +33,17 @@ BLOCK_TOL = 1e-5
 UNET_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while this module runs: six pytest-xdist
+    workers share the CPU, and torch's default of a thread per core makes
+    each small op wait on descheduled siblings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(got, want):
     if isinstance(got, torch.Tensor):
         got = got.detach().numpy()
@@ -152,7 +163,9 @@ def test_unet_forward(rng, tiny, name):
     jmodel, jparams = tiny[name]
     jparams = dict(jparams, out_gain=jnp.asarray(0.8))  # init is 0: all-zero output
     x, nl, cond = _unet_inputs(rng, name, 2)
-    want, want_lv = jmodel.apply(jparams, x, nl, cond, return_logvar=True)
+    # jitted: one compile of the forward, not one per op
+    want, want_lv = jax.jit(lambda p, x, n, c: jmodel.apply(p, x, n, c, return_logvar=True))(
+        jparams, x, nl, cond)
     model = _port_model(jmodel, jparams)
     with torch.no_grad():
         got, got_lv = model(_t(x), _t(nl), [_t(c) for c in cond], return_logvar=True)
