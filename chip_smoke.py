@@ -7,7 +7,9 @@ Phases, each of which exits non-zero on failure:
 1. build the hand-written CUDA kernels from csrc/ (one nvcc per source, in
    parallel, sm_90a), with ptxas' register report for every conv, block and
    wgmma-core instantiation; it fails on a spill in any of them and on
-   ptxas' warning that wgmma.mma_async instructions are serialized;
+   ptxas' warning that wgmma.mma_async instructions are serialized; then
+   the native host library (``native.build``, g++), which must load, so
+   that no phase takes the numpy Perlin and portable-noise paths;
 2. kernel phase: each kernel against its plain PyTorch version on the same
    inputs, TF32 off on both sides, bar max|diff| / max|ref| < 1e-4 (float32,
    another summation order), with the eager times of the kernel, its plain
@@ -195,6 +197,26 @@ Phases, each of which exits non-zero on failure:
    launches the block and conv kernels.  It prints ``{"export": {...}}``
    (seconds, bytes, launches, each ONNX file's max|diff|, output std and
    numpy runtime seconds).
+13. tools, on phase 6's world and the training phase's autoencoder_x8 run,
+   datasets in memory (the card has no h5py): each ``dev-viz`` tool's page
+   function (the card has no matplotlib; the command must then fail naming
+   it, which is checked) at full width - ``pipeline-viz`` at 512x512 on a
+   fresh world (all three kernels launched), ``consistency-decoder`` on the
+   64-3 decoder at crop 512 (26 + 2 launches), ``autoencoder`` on the
+   training run's saved EMA VAE at crop 512 (``vae_launches``),
+   ``noise-loss-curve`` on the 64-3 decoder at 512 b2 over 5 sigmas (5 x
+   (26 + 2)), ``base-diffusion`` (15 DPM steps of the 192-3 base, 15
+   attention launches, and the decoder's 26 + 2), and the host tools
+   (dataset, noise with the threefry field on the card, windows,
+   signed-sqrt) - every panel finite; the consistency-decoder page at crop
+   128 card vs CPU and ``sample_dpm`` with ``sde-dpmsolver++`` (order 2,
+   midpoint, 20 steps) on the coarse model card vs CPU on the same noise,
+   bar 1e-4; ``run_sweep`` over the autoencoder objective (3 trials, 2
+   startup) on the run's PostHocEMA snapshots and 16 in-memory items, its
+   values finite and its JSONL store resumed to a 4th trial; the native
+   library loaded, its Perlin FBm (256x256) and portable normals (1M)
+   equal to the numpy paths bit for bit, with both host times.  It prints
+   ``{"tools": {...}}``.
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
@@ -214,11 +236,13 @@ which must be positive for the float32 and bf16 kernels, and
 ``data_prep_launches`` from the data-preparation encode, which must be
 positive for the float32 block and conv, and ``export_launches`` from the
 loaded decoder program, which must be positive for the float32 block and
-conv), the card's name and power limit, and
+conv, and ``tools_launches`` from the tools phase, which must be positive
+for the three float32 kernels), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 import configparser
 import copy
+import importlib
 import json
 import math
 import os
@@ -1067,20 +1091,27 @@ def stage_calls(pipe) -> dict:
     return {k: v[0] for k, v in pipe.stage_timings.items()}
 
 
-def check_launches(torch, cuda_lib, fb, attn, pipe, calls_before, label, dtype=None) -> dict:
-    """Launch counts since the last reset against the model forwards the
-    pipeline's stages ran; with ``dtype``, every launch must be of that
-    type's kernels."""
+def forward_launches(pipe, calls_before, label) -> dict:
+    """The launches that the model forwards the pipeline's stages ran since
+    ``calls_before`` make: 26 blocks and 2 convs a decoder forward, one
+    attention a base forward."""
     calls = stage_calls(pipe)
     n = {k: calls.get(k, 0) - calls_before.get(k, 0)
          for k in ("latent_init", "latent_step", "decoder")}
     n_base, n_dec = n["latent_init"] + n["latent_step"], n["decoder"]
+    print(f"[{label}] base forwards {n_base}, decoder forwards {n_dec}", flush=True)
+    check(n_base > 0 and n_dec > 0, f"{label}: no base or decoder forward ran")
+    return {"fused_block": 26 * n_dec, "conv3x3": 2 * n_dec, "attention": n_base}
+
+
+def check_launches(torch, cuda_lib, fb, attn, pipe, calls_before, label, dtype=None) -> dict:
+    """Launch counts since the last reset against the model forwards the
+    pipeline's stages ran; with ``dtype``, every launch must be of that
+    type's kernels."""
     launches = {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches,
                 "attention": attn.fused_pixelnorm_attention.launches}
-    print(f"[{label}] base forwards {n_base}, decoder forwards {n_dec}, launches {launches}",
-          flush=True)
-    check(n_base > 0 and n_dec > 0, f"{label}: no base or decoder forward ran")
-    want = {"fused_block": 26 * n_dec, "conv3x3": 2 * n_dec, "attention": n_base}
+    print(f"[{label}] launches {launches}", flush=True)
+    want = forward_launches(pipe, calls_before, label)
     check(launches == want, f"{label}: launch counts {launches} != {want}")
     if dtype is not None:
         typed = {"fused_block": fb.fused_block, "conv3x3": fb.conv3x3,
@@ -2934,6 +2965,277 @@ def data_prep_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# tools phase
+# ---------------------------------------------------------------------------
+
+TOOLS_TOL = 1e-4  # card vs CPU, max|diff| / max|ref|: a tool's panels, the SDE sample
+PERLIN_CFG = (0.05, 4, 2.0, 0.5)  # the synthetic map's first channel: (freq, octaves, lac, gain)
+TOOLS_SIGMAS = 5  # noise-loss-curve points
+
+
+def tool_config(work_dir: str, kind: str, crop: int, n_items: int) -> str:
+    """A registry config whose ``val_dataset`` is an in-memory dataset (the
+    card has no h5py for the HDF5 sections the tools usually read)."""
+    path = os.path.join(work_dir, f"{kind}_{crop}.cfg")
+    with open(path, "w") as f:
+        f.write(f"[val_dataset]\n@dataset=chip_smoke_{kind}\ncrop_size={crop}\n"
+                f"seed={SEED + 30}\nn_items={n_items}\n")
+    return path
+
+
+def pages_finite(np, label, pages):
+    check(len(pages) > 0 and all(p.panels for p in pages), f"{label}: no panels")
+    for p in pages:
+        for kind, name, data, *_ in p.panels:
+            arrays = [data] if kind == "image" else list(data[:2])
+            check(all(np.isfinite(np.asarray(a, np.float64)).all() for a in arrays),
+                  f"{label}: panel {name!r} is not finite")
+
+
+def tools_native(np, report, card):
+    """The native host library, built at the start of the run: loaded, and
+    its Perlin FBm and portable normals equal to the numpy paths bit for
+    bit on a 256x256 grid and 1M draws, with both host times."""
+    from terrain_diffusion_tpu_torch import native
+    from terrain_diffusion_tpu_torch.ops import perlin, rng_portable
+
+    check(native.get_native() is not None, "the native library is not loaded")
+    ys, xs = np.mgrid[0:256, 0:256].astype(np.float32)
+    out = {}
+    for name, fn in (("native", perlin.perlin_fbm), ("numpy", perlin.perlin_fbm_np)):
+        t0 = time.perf_counter()
+        out[name] = fn(SEED, *PERLIN_CFG, xs, ys)
+        out[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(out["native"], out["numpy"]) and out["native"].std() > 0,
+          "native Perlin FBm differs from the numpy path")
+    draws = {}
+    for name, fn in (("native", rng_portable.fill_standard_normal),
+                     ("numpy", rng_portable.fill_standard_normal_np)):
+        draws[name] = np.empty(1 << 20, np.float32)
+        t0 = time.perf_counter()
+        fn(SEED, draws[name])
+        draws[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(draws["native"], draws["numpy"]),
+          "the native portable normals differ from the numpy path")
+    report["native"] = {"perlin_256x256_ms": {k: out[k + "_ms"] for k in ("native", "numpy")},
+                        "normals_1M_ms": {k: draws[k + "_ms"] for k in ("native", "numpy")}}
+    print(f"[tools native] {card}: loaded {native.lib._dll._name}; perlin_fbm 256x256 "
+          f"(4 octaves) native {out['native_ms']:.2f} ms, numpy {out['numpy_ms']:.2f} ms; "
+          f"fill_standard_normal 1M native {draws['native_ms']:.2f} ms, numpy "
+          f"{draws['numpy_ms']:.2f} ms (host clock); both bit-equal", flush=True)
+
+
+def tools_pages(torch, np, dev, world_dir, work_dir, launches, report, card):
+    """Each tool's page function on the card at full width (the card has no
+    matplotlib): the kernels' launches held to the forwards each runs."""
+    from terrain_diffusion_tpu_torch.nn.torch_compat import load_model
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+    from terrain_diffusion_tpu_torch.training.datasets import collate
+    from terrain_diffusion_tpu_torch.training.dev_utils import curves, figs, load_section
+    from terrain_diffusion_tpu_torch.training.dev_utils import dataset_viz, model_viz, noise_viz
+
+    decoder = load_model(os.path.join(world_dir, "decoder_model"), device=dev)
+    base = load_model(os.path.join(world_dir, "base_model"), device=dev)
+    vae = load_model(os.path.join(world_dir, "autoencoder_x8", "latest_checkpoint",
+                                  "saved_model_ema"), device=dev)
+    dec512 = load_section(tool_config(work_dir, "decoder", 512, 2), "val_dataset")
+    ae512 = load_section(tool_config(work_dir, "autoencoder", 512, 1), "val_dataset")
+    lat64 = load_section(tool_config(work_dir, "latents", 64, 1), "val_dataset")
+    sigmas = curves.sigma_grid(2e-3, 80.0, TOOLS_SIGMAS)
+    enc, dec = vae_launches(vae, 512)
+    one_decoder = {"fused_block": 26, "conv3x3": 2, "attention": 0}
+    none = {"fused_block": 0, "conv3x3": 0, "attention": 0}
+    world = WorldPipeline.from_pretrained(world_dir, seed=SEED, device=dev)
+    world.bind()
+
+    def loss_curve():
+        curve = curves.noise_loss_curve(decoder, collate([dec512[i] for i in range(2)]),
+                                        sigmas, SEED)
+        return curves.curve_page(sigmas, *curve, 2)
+
+    tools = [  # (label, page function maker, launches expected, or None for the world's forwards)
+        ("pipeline-viz 512x512", lambda: figs.pipeline_viz_page(world, SEED, (0, 0), 512), None),
+        ("consistency-decoder 512x512",
+         lambda: model_viz.consistency_decoder_pages(dec512, decoder, SEED), one_decoder),
+        ("autoencoder 512x512", lambda: model_viz.autoencoder_pages(ae512, vae, SEED),
+         {k: enc[k] + dec[k] for k in enc}),
+        (f"noise-loss-curve 512x512 b2 {TOOLS_SIGMAS} sigmas", loss_curve,
+         {k: TOOLS_SIGMAS * v for k, v in one_decoder.items()}),
+        ("base-diffusion 64x64 15 steps + decoder 512x512",
+         lambda: model_viz.base_diffusion_pages(lat64, base, SEED, 15, decoder),
+         dict(one_decoder, attention=15)),
+        ("dataset latents 64x64", lambda: (lambda i: dataset_viz._dataset_page(
+            lat64, i, True, dev)), none),
+        ("noise 192x192", lambda: noise_viz.noise_page(SEED, 192, 64, "both", dev), none),
+        ("windows", lambda: figs.windows_page(64, 32), none),
+        ("signed-sqrt", figs.signed_sqrt_page, none),
+    ]
+    report["tools"] = {}
+    for label, make, expected in tools:
+        torch.cuda.reset_peak_memory_stats()
+        before = stage_calls(world)
+        t0 = time.perf_counter()
+        pages, n = launches.run(lambda: [make()(0)])
+        seconds = time.perf_counter() - t0
+        pages_finite(np, label, pages)
+        if expected is None:
+            expected = forward_launches(world, before, label)
+        check(n == expected, f"{label} launched {n}, expected {expected}")
+        report["tools"][label] = {"seconds": seconds, "launches": n, "panels": len(pages[0].panels),
+                                  "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"[tools] {card}: {label}: {len(pages[0].panels)} panels in {seconds:.2f} s, "
+              f"launches {n}", flush=True)
+    print(f"[tools] pipeline-viz stages: " + ", ".join(
+        f"{k} {v['calls']} x {v['mean_ms']:.1f} ms" for k, v in world.timing_summary().items()),
+        flush=True)
+    world.close()
+
+
+def tools_card_vs_cpu(torch, np, world_dir, work_dir, launches, report, card,
+                      devices=("cuda", "cpu")):
+    """consistency-decoder's page at crop 128 on the card against the same
+    page on the CPU; sde-dpmsolver++ (order 2, midpoint) on the coarse model,
+    card against CPU on the same noise."""
+    card_dev, cpu = devices
+    from terrain_diffusion_tpu_torch.evaluation.samplers import cond_inputs_from_snr
+    from terrain_diffusion_tpu_torch.nn.torch_compat import load_model
+    from terrain_diffusion_tpu_torch.scheduler.dpmsolver import (EDMSchedulerConfig,
+                                                                 compute_sigmas, sample_dpm,
+                                                                 trigflow_precondition_noise)
+    from terrain_diffusion_tpu_torch.training.dev_utils import load_section, model_viz
+
+    ds = load_section(tool_config(work_dir, "decoder", 128, 1), "val_dataset")
+    pages = {}
+    for dev in devices:
+        decoder = load_model(os.path.join(world_dir, "decoder_model"), device=dev)
+        page_fn = model_viz.consistency_decoder_pages(ds, decoder, SEED)
+        if dev == card_dev:
+            pages[dev], n = launches.run(lambda: page_fn(0))
+            check(n == top_level_launches(decoder), f"consistency-decoder 128x128 launched {n}")
+        else:
+            pages[dev] = page_fn(0)
+    errs = {}
+    for (kind, name, got, *_), (_, _, want, *_) in zip(pages[card_dev].panels,
+                                                       pages[cpu].panels):
+        errs[name] = rel_err(torch.as_tensor(got), torch.as_tensor(want))
+    print(f"[tools] {card}: consistency-decoder 128x128 page, card vs CPU: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    check(max(errs.values()) < TOOLS_TOL, f"consistency-decoder page card vs CPU: {errs}")
+
+    cfg = EDMSchedulerConfig(algorithm_type="sde-dpmsolver++", solver_order=2,
+                             solver_type="midpoint")
+    steps = 20
+    rng = np.random.default_rng(SEED + 31)
+    x0 = rng.standard_normal((1, 64, 64, 6)).astype(np.float32) * compute_sigmas(cfg, steps)[0]
+    cond = rng.standard_normal((1, 64, 64, 5)).astype(np.float32)
+    noise = rng.standard_normal((steps, 1, 64, 64, 6)).astype(np.float32)
+    out = {}
+    for dev in devices:
+        model = load_model(os.path.join(world_dir, "coarse_model"), device=dev)
+        scalars, _ = cond_inputs_from_snr([0.3, 0.1, 1.0, 0.1, 1.0], 1, device=dev)
+        cond_t = torch.from_numpy(cond).to(dev)
+
+        def model_fn(scaled, sigma):
+            nl = torch.full((1,), float(trigflow_precondition_noise(sigma, cfg.sigma_data)),
+                            device=dev)
+            return model(torch.cat([scaled, cond_t], dim=-1), nl, scalars)
+
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[dev] = sample_dpm(model_fn, torch.from_numpy(x0).to(dev), cfg, steps,
+                                  sde_noise=torch.from_numpy(noise).to(dev)).cpu()
+        out[dev + "_s"] = time.perf_counter() - t0
+    err = rel_err(out[card_dev], out[cpu])
+    report["card_vs_cpu"] = {"consistency_decoder_128": errs, "sde_dpmsolver_coarse": err,
+                             "sde_s": {"card": out[card_dev + "_s"], "cpu": out[cpu + "_s"]}}
+    print(f"[tools] {card}: sde-dpmsolver++ order 2 midpoint, coarse 64x64, {steps} steps: "
+          f"card {out[card_dev + '_s']:.2f} s, CPU {out[cpu + '_s']:.2f} s, card vs CPU "
+          f"{err:.3e}, output std {float(out[card_dev].std()):.4f}", flush=True)
+    check(bool(torch.isfinite(out[card_dev]).all()) and err < TOOLS_TOL,
+          f"sde-dpmsolver++ card vs CPU: {err:.3e}")
+
+
+def tools_sweep(torch, np, dev, world_dir, work_dir, report, card):
+    """run_sweep over the autoencoder objective: 3 trials (2 startup) on the
+    PostHocEMA snapshots of the training phase's autoencoder_x8 run, 16
+    in-memory 64x64 items; then the JSONL store resumed to a 4th trial."""
+    from terrain_diffusion_tpu_torch.nn.torch_compat import load_model
+    from terrain_diffusion_tpu_torch.training.phema import PostHocEMA
+    from terrain_diffusion_tpu_torch.training.sweeps import sweep
+
+    run_dir = os.path.join(world_dir, "autoencoder_x8")
+    ckpt, phema = os.path.join(run_dir, "latest_checkpoint"), os.path.join(run_dir, "phema")
+    snaps = PostHocEMA.list_snapshots(phema)
+    check(len(snaps) >= 2, f"the autoencoder_x8 run wrote {len(snaps)} PostHocEMA snapshots")
+    model = load_model(os.path.join(ckpt, "saved_model"), device=dev)
+    data = MemoryDataset("autoencoder", 64, SEED + 32, n_items=16)
+    items = [data[i] for i in range(16)]
+    space = sweep.SweepSpace({"ema_sigma": (0.015, 0.25, True)})
+    store = os.path.join(work_dir, "trials.jsonl")
+    objective = sweep.autoencoder_objective(model, phema, items, SEED)
+    kw = dict(storage=store, seed=SEED % 1000, n_startup_trials=2, prior_weight=0.2,
+              prune_probability_threshold=0.05)
+    t0 = time.perf_counter()
+    best = sweep.run_sweep(objective, space, n_trials=3, **kw)
+    seconds = time.perf_counter() - t0
+    with open(store) as f:
+        first = f.readlines()
+    trials = [json.loads(line) for line in first]
+    check(len(trials) == 3 and all(math.isfinite(t["value"]) for t in trials),
+          f"the sweep's trials: {trials}")
+    sweep.run_sweep(objective, space, n_trials=4, **kw)
+    with open(store) as f:
+        lines = f.readlines()
+    check(len(lines) == 4 and lines[:3] == first, "the JSONL store did not resume")
+    report["sweep"] = {"seconds_3_trials": seconds, "snapshots": len(snaps),
+                       "values": [t["value"] for t in trials], "best": best}
+    print(f"[tools sweep] {card}: 3 trials over {len(snaps)} snapshots in {seconds:.2f} s: "
+          + ", ".join(f"ema_sigma {t['params']['ema_sigma']:.4f} -> {t['value']:.5f}"
+                      + (" (pruned)" if t["pruned"] else "") for t in trials)
+          + "; resumed to 4 trials", flush=True)
+
+
+def tools_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
+    """The dev tools and the remaining host pieces: every dev-viz tool's
+    pages at full width, one page and the SDE sampler card vs CPU, a sweep
+    over the training phase's VAE snapshots, the native library; rendering
+    without matplotlib names it.  Returns the launches by (kernel, type)."""
+    import importlib.util
+
+    from terrain_diffusion_tpu_torch import __main__ as cli_main
+
+    register_memory_datasets()
+    launches = EvalLaunches(torch, cuda_lib, fb, attn)
+    report = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as work_dir:
+        tools_pages(torch, np, torch.device("cuda", 0), world_dir, work_dir, launches, report,
+                    card)
+        tools_card_vs_cpu(torch, np, world_dir, work_dir, launches, report, card)
+        tools_sweep(torch, np, "cuda", world_dir, work_dir, report, card)
+        png = os.path.join(work_dir, "windows.png")
+        argv = ["dev-viz", "windows", "--out", png, "--headless"]
+        if importlib.util.find_spec("matplotlib") is None:
+            try:  # rendering needs matplotlib: the command must say so, not exit 0
+                cli_main.cli.main(argv, standalone_mode=False)
+                fail("dev-viz windows rendered without matplotlib")
+            except RuntimeError as e:
+                check("matplotlib" in str(e) and not os.path.exists(png),
+                      f"dev-viz without matplotlib: {e}")
+            report["render"] = "no matplotlib on this machine: the pages are built, " \
+                               "rendering fails naming it"
+        else:
+            cli_main.cli.main(argv, standalone_mode=False)
+            check(os.path.getsize(png) > 10_000, "dev-viz windows wrote no PNG")
+            report["render"] = "matplotlib: dev-viz windows wrote its PNG"
+        print(f"[tools] rendering: {report['render']}", flush=True)
+    tools_native(np, report, card)
+    report["launches"] = {f"{k} {str(dt).replace('torch.', '')}": n
+                          for (k, dt), n in launches.total.items()}
+    print(json.dumps({"tools": report}), flush=True)
+    return launches.total
+
+
 def main():
     try:
         import torch
@@ -2945,7 +3247,7 @@ def main():
     try:
         import numpy as np
 
-        from terrain_diffusion_tpu_torch import use_full_f32
+        from terrain_diffusion_tpu_torch import native, use_full_f32
         from terrain_diffusion_tpu_torch.ops import attention as attn
         from terrain_diffusion_tpu_torch.ops import cuda_lib
         from terrain_diffusion_tpu_torch.ops import fused_block as fb
@@ -2985,6 +3287,14 @@ def main():
               f"ptxas serializes the wgmma core: {line.strip()}")
     print(f"[build] {n_wgmma} wgmma-core instantiations", flush=True)
     check(n_wgmma > 0, "the build log shows no wgmma-core instantiation")
+    # the native host library (Perlin FBm, portable normals), so that no phase
+    # takes its numpy paths: built afresh and loaded
+    t0 = time.perf_counter()
+    native_path = native.build(force=True)
+    check(importlib.reload(native).get_native() is not None,
+          f"the native library {native_path} did not load")
+    print(f"[build] {os.path.relpath(native_path, ROOT)} (g++) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -3023,6 +3333,9 @@ def main():
         torch.cuda.empty_cache()
         export_launches = timed("export", lambda: export_phase(
             torch, np, cuda_lib, fb, attn, world_dir, card))
+        torch.cuda.empty_cache()
+        tools_launches = timed("tools", lambda: tools_phase(
+            torch, np, cuda_lib, fb, attn, world_dir, card))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
@@ -3044,7 +3357,8 @@ def main():
                            "surface_launches": surface_launches.get((kernel, dt), 0),
                            "data_prep_launches": prep_launches.get((kernel, dt), 0),
                            "export_launches": export_launches.get(kernel, 0) if not suffix
-                           else 0})
+                           else 0,
+                           "tools_launches": tools_launches.get((kernel, dt), 0)})
     check(all(r["evaluation_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched on the evaluation path")
     check(all(r["surface_launches"] > 0 for r in report[:2 * len(KERNELS)]),
@@ -3053,6 +3367,8 @@ def main():
           "the block or conv kernel was not launched by the data-preparation encode")
     check(all(r["export_launches"] > 0 for r in report[:2]),
           "the loaded decoder program launched no block or conv kernel")
+    check(all(r["tools_launches"] > 0 for r in report[:len(KERNELS)]),
+          "a float32 kernel was not launched by the dev tools")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

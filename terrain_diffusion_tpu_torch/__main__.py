@@ -6,8 +6,10 @@
 Commands import lazily, so ``--help`` stays fast.  Every command that runs
 work on a device (a model, or the dataset builders' Laplacian encode) runs
 it on the card unless it is given ``--device cpu`` (``onnx-export`` its
-verifying forward, ``export`` its trace and check); ``define-splits`` and
-``build-synthetic-stats`` run on the host.  ``api`` and
+verifying forward, ``export`` its trace and check, ``dev-viz`` its model,
+pipeline, threefry-field and terrain-composite tools); ``define-splits``,
+``build-synthetic-stats`` and ``dev-viz windows`` / ``signed-sqrt`` run on
+the host.  ``api`` and
 ``mc-api`` are argparse programs: the group hands them the rest of the
 command line unchanged (``api --help`` is theirs).
 """
@@ -56,6 +58,8 @@ cli = LazyGroup(
         # export
         "onnx-export": "terrain_diffusion_tpu_torch.export.onnx_export:main",
         "export": "terrain_diffusion_tpu_torch.export.torch_export:main",
+        # dev visualization harness
+        "dev-viz": "terrain_diffusion_tpu_torch.training.dev_utils.__main__:cli",
     },
 )
 

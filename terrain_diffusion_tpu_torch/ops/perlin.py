@@ -1,12 +1,17 @@
-"""Perlin FBm noise (FastNoiseLite-compatible algorithm), vectorized NumPy.
+"""Perlin FBm noise (FastNoiseLite-compatible algorithm) on the host.
 
-Counterpart of the NumPy path of ``terrain_diffusion_tpu.ops.perlin``:
+Counterpart of the host paths of ``terrain_diffusion_tpu.ops.perlin``:
 hash-based gradient Perlin, quintic interpolation, FBm octave stacking with
 the exact fractal bounding ``1 / (1 + g + ... + g^(octaves-1))``.
+``perlin_fbm`` takes the native C++ library
+(``terrain_diffusion_tpu_torch.native``) when it is built, else the
+vectorized NumPy path ``perlin_fbm_np``; both give the same floats.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from terrain_diffusion_tpu_torch.native import get_native
 
 _PRIME_X = np.int32(501125321)
 _PRIME_Y = np.int32(1136930381)
@@ -68,15 +73,14 @@ def fractal_bounding(octaves: int, gain: float) -> float:
     return 1.0 / amp_fractal
 
 
-def perlin_fbm(seed: int, frequency: float, octaves: int, lacunarity: float,
-               gain: float, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
-    """FBm Perlin at coordinates (pre-frequency units); the seed keeps its
-    low 31 bits."""
+def perlin_fbm_np(seed: int, frequency: float, octaves: int, lacunarity: float,
+                  gain: float, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """Vectorized NumPy FBm at coordinates (pre-frequency units)."""
     x = np.asarray(xs, dtype=np.float32) * frequency
     y = np.asarray(ys, dtype=np.float32) * frequency
     total = np.zeros_like(x, dtype=np.float32)
     amp = fractal_bounding(octaves, gain)
-    s = int(seed) & 0x7FFFFFFF
+    s = int(seed)
     for _ in range(octaves):
         s32 = ((s + 2**31) % 2**32) - 2**31  # wrap to int32 range
         total += _perlin_single(np.int32(s32), x, y) * amp
@@ -85,3 +89,16 @@ def perlin_fbm(seed: int, frequency: float, octaves: int, lacunarity: float,
         y = y * lacunarity
         amp *= gain
     return total
+
+
+def perlin_fbm(seed: int, frequency: float, octaves: int, lacunarity: float,
+               gain: float, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """FBm Perlin at coordinates (pre-frequency units); the seed keeps its
+    low 31 bits.  Native C++ when loaded, else NumPy."""
+    seed = int(seed) & 0x7FFFFFFF
+    nat = get_native()
+    if nat is not None:
+        out = nat.perlin_fbm_coords(seed, frequency, octaves, lacunarity, gain,
+                                    np.ravel(xs), np.ravel(ys))
+        return out.reshape(np.shape(xs))
+    return perlin_fbm_np(seed, frequency, octaves, lacunarity, gain, xs, ys)

@@ -1,7 +1,10 @@
 """Portable RNG: PCG64 (64-bit LCG + XSH-RR 64/32) + Marsaglia polar normals.
 
-Counterpart of ``terrain_diffusion_tpu.ops.rng_portable`` (its NumPy path):
-the same (seed, size) reproduces the identical float stream, bit for bit.
+Counterpart of ``terrain_diffusion_tpu.ops.rng_portable``: the same
+(seed, size) reproduces the identical float stream, bit for bit.  A float32
+fill takes the native C++ library (``terrain_diffusion_tpu_torch.native``)
+when it is built; otherwise, and for float64, the vectorized NumPy path,
+which gives the same stream.
 LCG states advance in blocks through precomputed ``M^i`` / increment prefix
 tables (64-bit wraparound arithmetic), and the Marsaglia polar rejection
 loop is reproduced by keeping accepted pairs in stream order.
@@ -11,6 +14,8 @@ from __future__ import annotations
 import time
 
 import numpy as np
+
+from terrain_diffusion_tpu_torch.native import get_native
 
 PCG64_MULT = 6364136223846793005
 PCG64_INC = 1442695040888963407
@@ -66,7 +71,19 @@ def _pcg64_outputs_block(state: int, n: int):
 
 def fill_standard_normal(seed: int, out: np.ndarray) -> None:
     """Fill the C-contiguous array `out` with standard normals from the
-    portable stream (Marsaglia polar, pairs kept in stream order)."""
+    portable stream (Marsaglia polar, pairs kept in stream order): native
+    for float32 when the library is loaded, else numpy."""
+    seed = int(seed) & _MASK64
+    nat = get_native()
+    if nat is not None and out.dtype == np.float32:
+        nat.fill_standard_normal_f32(seed, out)
+        return
+    fill_standard_normal_np(seed, out)
+
+
+def fill_standard_normal_np(seed: int, out: np.ndarray) -> None:
+    """The NumPy path of ``fill_standard_normal``: LCG blocks from the jump
+    tables, Marsaglia pairs accepted in stream order."""
     if not out.flags.c_contiguous:
         raise ValueError("fill_standard_normal needs a C-contiguous array")
     flat = out.reshape(-1)

@@ -2,8 +2,9 @@
 
 Counterpart of ``terrain_diffusion_tpu.scheduler.dpmsolver``: Karras /
 exponential sigma schedules with the scaling_p/scaling_t warp, EDM
-pre-conditioning, TrigFlow noise labels and multistep DPM-Solver++ of
-orders 1-3 with lower-order-final logic.  The per-step solver order is
+pre-conditioning, TrigFlow noise labels, multistep DPM-Solver++ of
+orders 1-3 with lower-order-final logic, and its SDE variant
+(``sde-dpmsolver++``, orders 1-2, on caller-given noise).  The per-step solver order is
 resolved statically from the step index and config (``_order_schedule``).
 Scalar coefficients are computed in float32, as the JAX program computes
 them, so both packages scale the sample by the same numbers.  Exponential
@@ -33,7 +34,7 @@ class EDMSchedulerConfig:
     rho: float = 7.0
     solver_order: int = 2
     prediction_type: str = "epsilon"  # or "v_prediction"
-    algorithm_type: str = "dpmsolver++"
+    algorithm_type: str = "dpmsolver++"  # or "sde-dpmsolver++"
     solver_type: str = "midpoint"  # or "heun"
     lower_order_final: bool = True
     euler_at_final: bool = False
@@ -133,6 +134,26 @@ def _order_schedule(cfg: EDMSchedulerConfig, num_steps: int) -> list:
     return orders
 
 
+def _sde_update(order, ms, sample, s_t, s_s0, s_s1, z, cfg):
+    """One sde-dpmsolver++ update of order 1 or 2 with the step's noise z."""
+    ratio = f32(s_t / s_s0)  # exp(-h); finite at s_t == 0
+    r2 = f32(ratio * ratio)  # exp(-2h)
+    one_r2 = f32(f32(1.0) - r2)
+    noise = float(f32(s_t * np.sqrt(max(f32(0.0), one_r2))))
+    if order == 1:
+        return sample * float(r2) + ms[0] * float(one_r2) + z * noise
+    st = max(s_t, f32(1e-20))
+    h = f32(np.log(f32(s_s0 / st)))
+    r0 = f32(f32(np.log(f32(s_s1 / s_s0))) / h)
+    m0 = ms[0]
+    d1 = (m0 - ms[1]) / float(r0)
+    if cfg.solver_type == "midpoint":
+        c1 = f32(f32(0.5) * one_r2)
+    else:
+        c1 = f32(f32(one_r2 / f32(f32(-2.0) * h)) + f32(1.0))
+    return sample * float(r2) + m0 * float(one_r2) + d1 * float(c1) + z * noise
+
+
 def _update(order, ms, sample, s_t, s_s0, s_s1, s_s2, cfg):
     """One multistep DPM-Solver++ update (ms = [m0, m1, m2], newest first)."""
     ratio = f32(s_t / s_s0)  # exp(-h); finite at s_t == 0
@@ -162,14 +183,29 @@ def _update(order, ms, sample, s_t, s_s0, s_s1, s_s2, cfg):
 
 
 def sample_dpm(model_fn: Callable, x_init: torch.Tensor, cfg: EDMSchedulerConfig,
-               num_steps: int) -> torch.Tensor:
+               num_steps: int, sde_noise=None) -> torch.Tensor:
     """Run the full DPM-Solver++ trajectory.
 
     model_fn(scaled_sample, sigma) -> model output, with sigma a float32
-    scalar; x_init is pure noise already scaled by sigmas[0].
+    scalar; x_init is pure noise already scaled by sigmas[0].  For
+    ``sde-dpmsolver++``, ``sde_noise`` is the (num_steps, *x.shape) noise,
+    one draw a step.
     """
-    if cfg.algorithm_type != "dpmsolver++":
-        raise NotImplementedError(f"{cfg.algorithm_type} is not ported")
+    sde = cfg.algorithm_type == "sde-dpmsolver++"
+    if sde:
+        if sde_noise is None:
+            raise ValueError(
+                "sde-dpmsolver++ needs sde_noise (num_steps, *x.shape): "
+                "zero noise would silently run a contracted mean update "
+                "that is neither the ODE nor the SDE")
+        if cfg.solver_order >= 3:
+            raise ValueError(
+                "sde-dpmsolver++ supports solver_order <= 2 (the order-3 "
+                "update has no noise term; the reference raises the same)")
+        sde_noise = torch.as_tensor(sde_noise, dtype=x_init.dtype, device=x_init.device)
+        if tuple(sde_noise.shape) != (num_steps, *x_init.shape):
+            raise ValueError(f"sde_noise is {tuple(sde_noise.shape)}, not "
+                             f"{(num_steps, *x_init.shape)}")
     sig = compute_sigmas(cfg, num_steps).astype(f32)
     orders = _order_schedule(cfg, num_steps)
     sd = f32(cfg.sigma_data)
@@ -188,5 +224,8 @@ def sample_dpm(model_fn: Callable, x_init: torch.Tensor, cfg: EDMSchedulerConfig
             c_out = -c_out
         m0 = sample * float(c_skip) + out * float(c_out)
         ms = [m0] + ms[:2]
-        sample = _update(orders[i], ms, sample, s_t, s_s0, s_s1, s_s2, cfg)
+        if sde:
+            sample = _sde_update(orders[i], ms, sample, s_t, s_s0, s_s1, sde_noise[i], cfg)
+        else:
+            sample = _update(orders[i], ms, sample, s_t, s_s0, s_s1, s_s2, cfg)
     return sample
