@@ -18,8 +18,12 @@ at the kernel table's main cases (``chip_smoke.host_ms``: 5 calls that
 never wait for the card, five times): the block at enc 512x512 64->64 b2
 in float32 and bf16, the out conv 512x512 64->1 b2, the attention at the
 midblock 8x8 12x64 b64.  It prints each run's times and, per case, the
-median of each side.  Without a card it exits non-zero.
+median of each side.  Each run also hashes (SHA-256) the output of every
+forward and wrapper case on its fixed inputs, and the script prints whether
+the two checkouts' outputs are bit-equal, case by case.  ``--once`` runs
+parent and change once each.  Without a card it exits non-zero.
 """
+import hashlib
 import importlib.util
 import json
 import os
@@ -52,6 +56,16 @@ def wrapper_calls(torch, dev, g):
         lambda: attn.fused_pixelnorm_attention(qkv, 12))))
 
 
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes (a 16-bit tensor as its raw 16-bit words)."""
+    import torch
+
+    raw = t.detach().contiguous().cpu()
+    if raw.dtype in (torch.bfloat16, torch.float16):
+        raw = raw.view(torch.int16)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
 def child(pkg_root: str):
     """Time the decoder forward of the package under pkg_root; print JSON."""
     sys.path = [pkg_root] + [p for p in sys.path if os.path.abspath(p or ".") != ROOT]
@@ -68,12 +82,13 @@ def child(pkg_root: str):
     dev = torch.device("cuda", 0)
     decoder = smoke.build_models(torch, dev)[2]
     g = torch.Generator().manual_seed(smoke.SEED + 3)
-    out = {"package": os.path.dirname(pkg.__file__), "ms": {}, "device_ms": {}}
+    out = {"package": os.path.dirname(pkg.__file__), "ms": {}, "device_ms": {}, "sha256": {}}
     for dtype, n in CASES:
         dt = getattr(torch, dtype)
         x = torch.randn((n, 512, 512, 5), generator=g).to(dev, dt)
         nl = torch.full((n,), 1.2, device=dev, dtype=dt)
         with torch.no_grad():
+            out["sha256"][f"decoder {dtype} b{n}"] = digest(decoder(x, nl, []))
             out["ms"][f"{dtype} b{n}"] = [smoke.time_ms(lambda: decoder(x, nl, []), iters=3)
                                           for _ in range(REPEATS)]
             try:
@@ -87,6 +102,7 @@ def child(pkg_root: str):
     out["host_ms"] = {}
     with torch.no_grad():
         for key, call in wrapper_calls(torch, dev, g).items():
+            out["sha256"][key] = digest(call())
             out["host_ms"][key] = [smoke.host_ms(call) for _ in range(5)]
     print("RESULT " + json.dumps(out), flush=True)
 
@@ -95,12 +111,14 @@ def main():
     if len(sys.argv) >= 3 and sys.argv[1] == "--child":
         child(os.path.abspath(sys.argv[2]))
         return
-    if len(sys.argv) < 2:
+    once = "--once" in sys.argv
+    args = [a for a in sys.argv[1:] if a != "--once"]
+    if not args:
         sys.exit(__doc__)
-    roots = {"parent": os.path.abspath(sys.argv[1]),
-             "change": os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else ROOT)}
+    roots = {"parent": os.path.abspath(args[0]),
+             "change": os.path.abspath(args[1] if len(args) > 1 else ROOT)}
     runs = []
-    for side in ("parent", "change", "change", "parent") * 2:
+    for side in ("parent", "change") if once else ("parent", "change", "change", "parent") * 2:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", roots[side]],
                               cwd=roots[side], capture_output=True, text=True, timeout=900)
         line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")), None)
@@ -114,6 +132,10 @@ def main():
             for k, v in res["ms"].items()) + "; host a call " + "; ".join(
             f"{k} {', '.join(f'{t:.4f}' for t in v)} ms" for k, v in res["host_ms"].items()),
             flush=True)
+    sums = {side: next(r["sha256"] for s, r in runs if s == side) for side in roots}
+    for key, want in sums["parent"].items():
+        print(f"[ab] outputs {key}: parent and change bit-equal "
+              f"{'yes' if sums['change'].get(key) == want else 'NO'}", flush=True)
     for metric, keys in (("ms", [f"{d} b{n}" for d, n in CASES]),
                          ("device_ms", [f"{d} b{n}" for d, n in CASES]),
                          ("host_ms", HOST_CASES)):

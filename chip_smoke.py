@@ -217,6 +217,22 @@ Phases, each of which exits non-zero on failure:
    library loaded, its Perlin FBm (256x256) and portable normals (1M)
    equal to the numpy paths bit for bit, with both host times.  It prints
    ``{"tools": {...}}``.
+14. parallel (``terrain_diffusion_tpu_torch.parallel``, the downloading
+   tools): two cold 256x256 gets (the world's first, then a fresh region)
+   of the production-width float32 world with the kernels, then with
+   ``block_impl="xla"`` (no block or conv launch;
+   within 1e-4 of the kernel world), then on a mesh of two slots on
+   ``cuda:0`` (within rtol 1e-4, atol 1e-5 of the single world; launches
+   = the world's forwards x 2), and over every card where there are two
+   or more ("1 card: not run" otherwise); ``diffusion_decoder_64-3.cfg`` at
+   batch 4 of 128x128, 2 steps, with no group and under NCCL at world
+   size 1 (bit for bit; cuDNN deterministic in this sub-phase), then as
+   two gloo ranks on ``cuda:0`` (``distributed.launch``) within 1e-5 of
+   one process; the row-sharded forward of the 64-3 decoder at 512x512
+   under NCCL at world size 1 against its plain forward (2e-5);
+   ``extract_grid_data`` of a seeded 10' global GeoTIFF at JAX's cell size,
+   each checked cell equal to the raster's window.  It prints
+   ``{"parallel": {...}}``, each time beside the card's name and limit.
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
@@ -237,7 +253,9 @@ which must be positive for the float32 and bf16 kernels, and
 positive for the float32 block and conv, and ``export_launches`` from the
 loaded decoder program, which must be positive for the float32 block and
 conv, and ``tools_launches`` from the tools phase, which must be positive
-for the three float32 kernels), the card's name and power limit, and
+for the three float32 kernels, and ``parallel_launches`` from the mesh
+world, which must be positive for the three float32 kernels), the card's
+name and power limit, and
 {"ok": true, "device": {...}}.
 """
 import configparser
@@ -3236,6 +3254,250 @@ def tools_phase(torch, np, cuda_lib, fb, attn, world_dir, card) -> dict:
     return launches.total
 
 
+PARALLEL_STEPS = 2
+
+
+def parallel_train_config(save_dir: str) -> dict:
+    """``diffusion_decoder_64-3.cfg`` at full width, batch 4 of 128x128
+    crops from the in-memory decoder dataset, for the data-parallel checks."""
+    from terrain_diffusion_tpu_torch.training.registry import apply_overrides, load_config
+
+    config = load_config(os.path.join(ROOT, DECODER_CFG))
+    for section in UNUSED_SECTIONS:
+        config.pop(section, None)
+    apply_overrides(config, [f"logging.save_dir={json.dumps(save_dir)}",
+                             memory_dataset("decoder", 128), "training.batch_size=4",
+                             "logging.save_epochs=0"])
+    return config
+
+
+def parallel_train_rank(config: dict, device: str) -> dict:
+    """One rank of a data-parallel run (inside ``distributed.launch``)."""
+    import torch
+
+    from terrain_diffusion_tpu_torch.training.train import run_training
+
+    torch.backends.cudnn.deterministic = True
+    register_memory_datasets()
+    return run_training(config, max_steps=PARALLEL_STEPS, log_every=1, device=device)[2]
+
+
+def checkpoint_tensors(torch, save_dir: str) -> dict:
+    """The weights and Adam moments a run saved, by name."""
+    from safetensors.torch import load_file
+
+    ckpt = os.path.join(save_dir, "latest_checkpoint")
+    out = {f"w/{k}": v for k, v in load_file(
+        os.path.join(ckpt, "saved_model", "model.safetensors")).items()}
+    opt = torch.load(os.path.join(ckpt, "train_state.pt"), map_location="cpu")["opt_state"]
+    for moment in ("mu", "nu"):
+        out.update({f"{moment}/{k}": v for k, v in opt[moment].items()})
+    return out
+
+
+def parallel_worlds(torch, np, cuda_lib, fb, attn, models, report, card):
+    """block_impl="xla" against the kernel world, and a world on a mesh of
+    two slots on cuda:0 (and over every card where there are two or more)
+    against the single-device world, each with its launches held."""
+    from terrain_diffusion_tpu_torch.parallel import Mesh
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+
+    # the world's first get, then a get at a fresh region: both cold tiles,
+    # the second after the world's code paths have run once
+    boxes = ((0, 0, 256, 256), (8192, -4096, 8448, -3840))
+
+    def serve(label, **kw):
+        pipe = WorldPipeline(seed=SEED, device="cuda", **kw).set_models(*models).bind()
+        cuda_lib.reset_launch_counts()
+        outs, secs = [], []
+        for box in boxes:
+            t0 = time.perf_counter()
+            outs.append(pipe.get(*box))
+            secs.append(time.perf_counter() - t0)
+            check(np.isfinite(outs[-1]["elev"]).all() and np.isfinite(outs[-1]["climate"]).all(),
+                  f"{label}: a value is not finite")
+        launches = {"fused_block": fb.fused_block.launches, "conv3x3": fb.conv3x3.launches,
+                    "attention": attn.fused_pixelnorm_attention.launches}
+        print(f"[parallel] {label}: cold 256x256 gets {secs[0] * 1000:.1f} ms (the world's "
+              f"first), {secs[1] * 1000:.1f} ms (a fresh region); launches {launches} ({card})",
+              flush=True)
+        return pipe, outs, launches, secs
+
+    ref, want, ref_launches, ref_s = serve("kernel world")
+    want_launches = forward_launches(ref, {}, "parallel kernel world")
+    check(ref_launches == want_launches, f"kernel world launches {ref_launches}")
+    report["kernel_world_s"] = ref_s
+    xla, got, launches, secs = serve("block_impl=xla world", block_impl="xla")
+    err = max(rel_err(torch.from_numpy(g[k]), torch.from_numpy(w[k]))
+              for g, w in zip(got, want) for k in ("elev", "climate"))
+    print(f"[parallel] block_impl=xla vs kernels: rel_err={err:.3e}", flush=True)
+    check(launches == {"fused_block": 0, "conv3x3": 0,
+                       "attention": forward_launches(xla, {}, "xla world")["attention"]},
+          f"block_impl=xla launched block or conv kernels: {launches}")
+    check(err < KERNEL_TOL, f"block_impl=xla disagrees with the kernel world: {err:.3e}")
+    report["xla_world"] = {"s": secs, "rel_err": err, "launches": launches}
+    meshes = [("mesh cuda:0 x2", ["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("mesh over every card",
+                       [f"cuda:{i}" for i in range(torch.cuda.device_count())]))
+    else:
+        print("[parallel] mesh over every card: 1 card: not run", flush=True)
+        report["mesh_every_card"] = "1 card: not run"
+    for label, devices in meshes:
+        mesh = Mesh.from_devices(devices)
+        pipe, got, launches, secs = serve(label, mesh=mesh)
+        for g, w in zip(got, want):
+            for k in ("elev", "climate"):
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-5,
+                                           err_msg=f"{label}: {k} differs from the single world")
+        per_world = forward_launches(pipe, {}, label)
+        expect = {k: n * mesh.size for k, n in per_world.items()}
+        check(launches == expect, f"{label}: launches {launches} != forwards x slots {expect}")
+        report[label] = {"s": secs, "launches": launches, "slots": mesh.size,
+                         "buckets": {"coarse": list(pipe.coarse.batch_buckets),
+                                     "latent": list(pipe.latents.batch_buckets),
+                                     "decoder": list(pipe.residual.batch_buckets)}}
+    return report["mesh cuda:0 x2"]["launches"]
+
+
+def parallel_training(torch, np, work_dir, report, card):
+    """A diffusion run under NCCL at world size 1 against the same run with
+    no group, bit for bit; then two gloo ranks on cuda:0 against one rank,
+    within 1e-5.  cuDNN runs its deterministic algorithms here, so that two
+    runs of the same work give the same bits and only the group differs."""
+    import torch.distributed as dist
+
+    from terrain_diffusion_tpu_torch.parallel import distributed
+    from terrain_diffusion_tpu_torch.training.train import run_training
+
+    register_memory_datasets()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        parallel_training_runs(torch, dist, distributed, run_training, work_dir, report, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def parallel_training_runs(torch, dist, distributed, run_training, work_dir, report, card):
+    alone = os.path.join(work_dir, "alone")
+    t0 = time.perf_counter()
+    run_training(parallel_train_config(alone), max_steps=PARALLEL_STEPS, log_every=1,
+                 device="cuda:0")
+    report["one_process_s"] = time.perf_counter() - t0
+    nccl = os.path.join(work_dir, "nccl")
+    distributed.init_group("nccl", 0, 1, distributed.free_port())
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "the NCCL group did not form")
+        t0 = time.perf_counter()
+        run_training(parallel_train_config(nccl), max_steps=PARALLEL_STEPS, log_every=1,
+                     device="cuda")
+        report["nccl_world1_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    a, b = checkpoint_tensors(torch, alone), checkpoint_tensors(torch, nccl)
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"[parallel] NCCL world size 1 vs no group: {len(a)} tensors, bit-equal {same} "
+          f"({card})", flush=True)
+    check(same, "a train run under NCCL at world size 1 differs from the run with no group")
+    report["nccl_world1_bit_equal"] = same
+
+    gloo = os.path.join(work_dir, "gloo")
+    t0 = time.perf_counter()
+    counters = distributed.launch(parallel_train_rank, 2, parallel_train_config(gloo),
+                                  "cuda:0", backend="gloo")
+    report["gloo_two_ranks_s"] = time.perf_counter() - t0
+    check(all(c["step"] == PARALLEL_STEPS and c["seen"] == 4 * PARALLEL_STEPS
+              for c in counters), f"gloo ranks: counters {counters}")
+    c = checkpoint_tensors(torch, gloo)
+    check(c.keys() == a.keys(), "two gloo ranks saved other tensors than one process")
+    diff = max(float((c[k] - a[k]).abs().max()) for k in a)
+    close = all(torch.allclose(c[k], a[k], rtol=1e-5, atol=1e-5) for k in a)
+    print(f"[parallel] two gloo ranks on cuda:0 vs one process: max|diff| {diff:.3e} over "
+          f"{len(a)} weight and Adam tensors, within rtol 1e-5 + atol 1e-5: {close} ({card})",
+          flush=True)
+    check(close, f"two gloo ranks on cuda:0 differ from one process: max|diff| {diff:.3e}")
+    report["gloo_two_ranks_max_abs_diff"] = diff
+
+
+def parallel_spatial(torch, np, decoder, report, card):
+    """The row-sharded forward under NCCL at world size 1 on the 64-3
+    decoder at 512x512 against its plain forward."""
+    import torch.distributed as dist
+
+    from terrain_diffusion_tpu_torch.nn.layers import with_block_impl
+    from terrain_diffusion_tpu_torch.parallel import (distributed, make_mesh, shard_spatial,
+                                                      spatial_model)
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    x = torch.randn((1, 512, 512, 5), generator=g).cuda()
+    nl = torch.full((1,), 1.2, device="cuda")
+    with torch.no_grad():
+        want = with_block_impl(decoder, "xla")(x, nl, [])
+    distributed.init_group("nccl", 0, 1, distributed.free_port())
+    try:
+        sp = spatial_model(decoder)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = sp(shard_spatial(make_mesh(), x, dim=1), nl, [])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    err = rel_err(got, want)
+    print(f"[parallel] row-sharded 512x512 forward at NCCL world size 1 vs plain: "
+          f"rel_err={err:.3e}, {secs * 1000:.1f} ms ({card})", flush=True)
+    check(got.shape == want.shape and err < 2e-5,
+          f"the row-sharded forward disagrees with the plain forward: {err:.3e}")
+    report["spatial_world1"] = {"rel_err": err, "ms": secs * 1000}
+
+
+def parallel_extract(np, work_dir, report, card):
+    """``extract_grid_data`` on a seeded global 10' GeoTIFF at JAX's cell
+    size: every cell file equals the raster's window."""
+    from terrain_diffusion_tpu_torch.common.geotiff import Affine, read_geotiff, write_geotiff
+    from terrain_diffusion_tpu_torch.data.downloading.extract import extract_grid_data
+    from terrain_diffusion_tpu_torch.data.world_grid import create_equal_area_grid
+
+    rng = np.random.default_rng(SEED + 41)
+    world = Affine.from_bounds(-180.0, -90.0, 180.0, 90.0, TEN_MINUTES[1], TEN_MINUTES[0])
+    raster = smooth_field(np, rng, TEN_MINUTES, 2500.0, -800.0).astype(np.float32)
+    src = os.path.join(work_dir, "global_10m.tif")
+    write_geotiff(src, raster, world, compress=None)
+    cells = create_equal_area_grid((368640.0, 368640.0))
+    out_dir = os.path.join(work_dir, "cells")
+    t0 = time.perf_counter()
+    extract_grid_data(src, cells, out_dir)
+    secs = time.perf_counter() - t0
+    names = sorted(os.listdir(out_dir))
+    check(len(names) == len(cells), f"extract wrote {len(names)} of {len(cells)} cells")
+    for name in names[::max(len(names) // 16, 1)]:
+        arr, t, _ = read_geotiff(os.path.join(out_dir, name))
+        row0 = int(round((t.f - world.f) / world.e))
+        col0 = int(round((t.c - world.c) / world.a))
+        check(np.array_equal(arr, raster[row0:row0 + arr.shape[0], col0:col0 + arr.shape[1]]),
+              f"extract: {name} is not the raster's window")
+    print(f"[parallel] extract: {len(names)} cells of a 10' global raster in {secs:.2f} s "
+          f"({card})", flush=True)
+    report["extract"] = {"cells": len(names), "s": secs}
+
+
+def parallel_phase(torch, np, cuda_lib, fb, attn, models, card) -> dict:
+    """The parallel layer on the card: block_impl="xla", the mesh world,
+    NCCL at world size 1, two gloo ranks on cuda:0, the row-sharded
+    forward and the cell extractor.  Returns the mesh world's launches."""
+    report = {"card": card}
+    launches = parallel_worlds(torch, np, cuda_lib, fb, attn, models, report, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as work_dir:
+        parallel_training(torch, np, work_dir, report, card)
+        parallel_spatial(torch, np, models[2], report, card)
+        parallel_extract(np, work_dir, report, card)
+    print(json.dumps({"parallel": report}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -3336,6 +3598,9 @@ def main():
         torch.cuda.empty_cache()
         tools_launches = timed("tools", lambda: tools_phase(
             torch, np, cuda_lib, fb, attn, world_dir, card))
+        torch.cuda.empty_cache()
+        parallel_launches = timed("parallel", lambda: parallel_phase(
+            torch, np, cuda_lib, fb, attn, models, card))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     report = []
@@ -3358,7 +3623,9 @@ def main():
                            "data_prep_launches": prep_launches.get((kernel, dt), 0),
                            "export_launches": export_launches.get(kernel, 0) if not suffix
                            else 0,
-                           "tools_launches": tools_launches.get((kernel, dt), 0)})
+                           "tools_launches": tools_launches.get((kernel, dt), 0),
+                           "parallel_launches": parallel_launches[kernel] if not suffix
+                           else 0})
     check(all(r["evaluation_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched on the evaluation path")
     check(all(r["surface_launches"] > 0 for r in report[:2 * len(KERNELS)]),
@@ -3369,6 +3636,8 @@ def main():
           "the loaded decoder program launched no block or conv kernel")
     check(all(r["tools_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched by the dev tools")
+    check(all(r["parallel_launches"] > 0 for r in report[:len(KERNELS)]),
+          "a float32 kernel was not launched by the mesh world")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

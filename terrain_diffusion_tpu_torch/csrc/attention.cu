@@ -226,10 +226,13 @@ template <int T, class E>
 cudaError_t launch_attention(const E* qkv, E* out, int n, int hw, int heads,
                              int ch, float eps, cudaStream_t stream) {
   const size_t smem = attn_smem_floats(T, ch) * sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per instantiation
-      pixelnorm_attention_kernel<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMaxSmem);
-  if (attr != cudaSuccess) return attr;
+  static PerDevice<cudaError_t> state;  // once per instantiation and device
+  const cudaError_t* attr = state.get([] {
+    return cudaFuncSetAttribute(pixelnorm_attention_kernel<T, E>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  });
+  if (!attr) return cudaErrorInvalidDevice;
+  if (*attr != cudaSuccess) return *attr;
   dim3 grid(n * heads, (hw + T - 1) / T);
   pixelnorm_attention_kernel<T, E><<<grid, ATTN_THREADS, smem, stream>>>(qkv, out, hw, heads,
                                                                          ch, eps);
@@ -571,10 +574,14 @@ template <int CH, class E>
 cudaError_t launch_attention_tc(const E* qkv, E* out, int n, int hw, int heads,
                                 float eps, cudaStream_t stream) {
   using A = TcAttn<CH>;
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per instantiation
-      pixelnorm_attention_tc<CH, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)A::smem_bytes(3));
-  if (attr != cudaSuccess) return attr;
+  static PerDevice<cudaError_t> state;  // once per instantiation and device
+  const cudaError_t* attr = state.get([] {
+    return cudaFuncSetAttribute(pixelnorm_attention_tc<CH, E>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)A::smem_bytes(3));
+  });
+  if (!attr) return cudaErrorInvalidDevice;
+  if (*attr != cudaSuccess) return *attr;
   if (reinterpret_cast<uintptr_t>(qkv) & 15) return cudaErrorMisalignedAddress;  // 16-byte copies
   const int nc = (hw + TC_KT - 1) / TC_KT;
   if (nc > 65535) return cudaErrorInvalidValue;

@@ -70,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace tdt {
@@ -464,6 +465,27 @@ struct LaunchInfo {
   int sms;
 };
 
+// One-time launch state kept per device: a kernel's shared-memory opt-in
+// and its occupancy belong to one device's context, so each device makes
+// its own on its first launch there (a process-wide static would leave a
+// second card without the opt-in).  get() returns the current device's
+// value, or nullptr where the current device cannot be read.
+constexpr int kMaxDevices = 64;
+
+template <class V>
+struct PerDevice {
+  std::once_flag once[kMaxDevices];
+  V value[kMaxDevices];
+
+  template <class Init>
+  const V* get(Init&& init) {
+    int dev = -1;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return nullptr;
+    std::call_once(once[dev], [&] { value[dev] = init(); });
+    return &value[dev];
+  }
+};
+
 template <typename Kernel>
 LaunchInfo query_launch(Kernel kernel, int threads, int smem) {
   LaunchInfo info = {cudaSuccess, 0, 0};
@@ -506,10 +528,12 @@ template <class T, int ACT, int EPI>
 cudaError_t launch_conv_tc(const float* x, const float* w, float* y, int N, int H, int W,
                            int Cin, int Cout, const EpiArgs& epi, cudaStream_t stream) {
   auto kernel = conv_tc_kernel<T, ACT, EPI>;
-  static const LaunchInfo info = query_launch(kernel, T::NT, T::SMEM);  // once per kernel
+  static PerDevice<LaunchInfo> state;  // once per kernel and device
+  const LaunchInfo* info = state.get([&] { return query_launch(kernel, T::NT, T::SMEM); });
+  if (!info) return cudaErrorInvalidDevice;
   ConvGrid grid;
   unsigned blocks;
-  const cudaError_t err = plan_conv<T>(info, N, H, W, Cin, Cout, grid, blocks);
+  const cudaError_t err = plan_conv<T>(*info, N, H, W, Cin, Cout, grid, blocks);
   if (err != cudaSuccess || blocks == 0) return err;
   grid.vec_in = Cin % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   grid.vec_w = Cout % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
@@ -769,15 +793,18 @@ cudaError_t launch_conv3x3_head(const E* x, const E* w, E* y, int N, int H, int 
                                 int Cout, const EpiArgs& epi, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(E);
   auto kernel = conv3x3_head_kernel<E, ACT, EPI>;
-  // once per kernel: the register-bound blocks per SM, with any shared memory allowed
-  static const LaunchInfo info = [&] {
+  // once per kernel and device: the register-bound blocks per SM, with any
+  // shared memory allowed
+  static PerDevice<LaunchInfo> state;
+  const LaunchInfo* info = state.get([&] {
     LaunchInfo i = query_launch(kernel, HEAD_NT, 0);
     if (i.err == cudaSuccess)
       i.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)kMaxSmem);
     return i;
-  }();
-  if (info.err != cudaSuccess) return info.err;
+  });
+  if (!info) return cudaErrorInvalidDevice;
+  if (info->err != cudaSuccess) return info->err;
   if (Cout < 1 || Cout > 8 || Cin < 1) return cudaErrorInvalidValue;
   HeadGrid hg;
   hg.words = (Cin + V - 1) / V;
@@ -793,9 +820,9 @@ cudaError_t launch_conv3x3_head(const E* x, const E* w, E* y, int N, int H, int 
   // resident warps: the register bound, and the shared memory of an SM
   // (228 KB, 1 KB of it reserved per block)
   int per_sm = (int)(233472 / (smem + 1024));
-  per_sm = per_sm < info.blocks_per_sm ? per_sm : info.blocks_per_sm;
+  per_sm = per_sm < info->blocks_per_sm ? per_sm : info->blocks_per_sm;
   per_sm = per_sm > 0 ? per_sm : 1;
-  const long long warps = (long long)per_sm * info.sms * (HEAD_NT / 32);
+  const long long warps = (long long)per_sm * info->sms * (HEAD_NT / 32);
   long long rows = (hg.total + warps - 1) / warps;
   rows = rows > HEAD_MIN_ROWS ? rows : HEAD_MIN_ROWS;
   if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -1114,10 +1141,12 @@ template <class T, class E, bool OUT_F32, int EPI>
 cudaError_t launch_conv_h_tc(const E* x, const E* w, void* y, int N, int H, int W, int Cin,
                              int Cout, const EpiArgs& epi, cudaStream_t stream) {
   auto kernel = conv_h_kernel<T, E, OUT_F32, EPI>;
-  static const LaunchInfo info = query_launch(kernel, T::NT, T::SMEM);  // once per kernel
+  static PerDevice<LaunchInfo> state;  // once per kernel and device
+  const LaunchInfo* info = state.get([&] { return query_launch(kernel, T::NT, T::SMEM); });
+  if (!info) return cudaErrorInvalidDevice;
   ConvGrid grid;
   unsigned blocks;
-  const cudaError_t err = plan_conv<T>(info, N, H, W, Cin, Cout, grid, blocks);
+  const cudaError_t err = plan_conv<T>(*info, N, H, W, Cin, Cout, grid, blocks);
   if (err != cudaSuccess || blocks == 0) return err;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x), wa = reinterpret_cast<uintptr_t>(w);
   grid.vec_in = (Cin % 8 == 0 && (xa & 15) == 0) ? 2 : (Cin % 2 == 0 && (xa & 3) == 0) ? 1 : 0;

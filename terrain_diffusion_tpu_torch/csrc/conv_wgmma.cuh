@@ -440,9 +440,11 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver the runtime loaded, or nullptr
+// cuTensorMapEncodeTiled through the runtime's entry-point query, or nullptr;
+// queried once per device, as the rest of the one-time launch state is
 inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
+  static PerDevice<EncodeTiledFn> state;
+  const EncodeTiledFn* fn = state.get([] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
@@ -452,8 +454,8 @@ inline EncodeTiledFn encode_tiled() {
     const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
 #endif
     return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? (EncodeTiledFn)p : nullptr;
-  }();
-  return fn;
+  });
+  return fn ? *fn : nullptr;
 }
 
 // a tiled, 128B-swizzled map of a K-contiguous 16-bit tensor: dims and box
@@ -481,14 +483,16 @@ template <class T, class E, bool OUT_F32, int EPI>
 cudaError_t launch_conv_wgmma(const E* x, const E* w, void* y, int N, int H, int W, int Cin,
                               int Cout, const EpiArgs& epi, cudaStream_t stream) {
   auto kernel = conv_wgmma_kernel<T, E, OUT_F32, EPI>;
-  static const LaunchInfo info = query_launch(kernel, T::NT, T::MAX_SMEM);  // once per kernel
+  static PerDevice<LaunchInfo> state;  // once per kernel and device
+  const LaunchInfo* info = state.get([&] { return query_launch(kernel, T::NT, T::MAX_SMEM); });
+  if (!info) return cudaErrorInvalidDevice;
   // TMA reads from 16-byte aligned rows (the wrapper checks this first)
   if ((reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(w) & 15) ||
       Cin % 16 || Cout % WG_BN)
     return cudaErrorMisalignedAddress;
   ConvGrid grid;
   unsigned blocks;
-  cudaError_t err = plan_conv<T>(info, N, H, W, Cin, Cout, grid, blocks);
+  cudaError_t err = plan_conv<T>(*info, N, H, W, Cin, Cout, grid, blocks);
   if (err != cudaSuccess || blocks == 0) return err;
   if (grid.nchunks > T::MAX_CHUNKS && !T::STREAM) return cudaErrorInvalidValue;
   CUtensorMap tx, tw;
@@ -749,14 +753,16 @@ template <class E, int EPI>
 cudaError_t launch_in_conv16(const E* x, const E* w, E* y, int N, int H, int W, int Cin, int Cout,
                              const EpiArgs& epi, cudaStream_t stream) {
   auto kernel = in_conv16_kernel<E, EPI>;
-  static const LaunchInfo info = query_launch(kernel, IC_NT, IC_SMEM);  // once per kernel
+  static PerDevice<LaunchInfo> state;  // once per kernel and device
+  const LaunchInfo* info = state.get([&] { return query_launch(kernel, IC_NT, IC_SMEM); });
+  if (!info) return cudaErrorInvalidDevice;
   // 16-byte words of x (the wrapper checks this first); y from the wrapper
   if ((reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(y) & 15))
     return cudaErrorMisalignedAddress;
   if (Cin > 8 || Cin % 2 || Cout % 8) return cudaErrorInvalidValue;
   ConvGrid grid;
   unsigned blocks;
-  cudaError_t err = plan_conv<InConvTile>(info, N, H, W, Cin, Cout, grid, blocks);
+  cudaError_t err = plan_conv<InConvTile>(*info, N, H, W, Cin, Cout, grid, blocks);
   if (err != cudaSuccess || blocks == 0) return err;
   CUtensorMap ty;
   err = encode_map<E, 4>(&ty, y, {(cuuint64_t)Cout, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N},

@@ -14,7 +14,9 @@ Kernel routing is the blocks' (``nn/layers.py``): on the card every
 encoder and decoder block whose output map has at least 128 x 128 pixels
 runs the fused-block kernel, and the encoder's in conv the 3x3-conv
 kernel; the decoder's ``out_conv`` stays an ``MPConv``, as JAX computes
-it with ``mp_conv_apply`` outside any Pallas kernel.
+it with ``mp_conv_apply`` outside any Pallas kernel.  ``with_block_impl(ae,
+"xla")`` turns the block and conv kernels off in the encoder and the
+decoder alike (the switch is on each block and on the encoder).
 """
 from __future__ import annotations
 
@@ -146,13 +148,19 @@ class EDMAutoencoder(nn.Module):
         return means, logvars
 
     @staticmethod
-    def postencode(means, logvars, key=None, use_mode: bool = False):
+    def postencode(means, logvars, key=None, use_mode: bool = False, rows=None):
         """A latent sample; ``key`` is a threefry key (``ops/noise_field.py``),
-        and without one (or with ``use_mode``) the means."""
+        and without one (or with ``use_mode``) the means.  With ``rows``
+        (data-parallel training) the noise is drawn for the global batch
+        and cut to the rows the means hold."""
         if use_mode or key is None:
             return means
         std = torch.exp(logvars * 0.5)
-        return means + normal(key, std.shape, std.device).to(std.dtype) * std
+        if rows is None:
+            eps = normal(key, std.shape, std.device)
+        else:
+            eps = rows.take(normal(key, (rows.total, *std.shape[1:]), std.device))
+        return means + eps.to(std.dtype) * std
 
     def decode(self, z, include_logvar: bool = False, compute_dtype=None):
         """z (N, h, w, latent + skips) -> (N, H, W, out_ch)."""

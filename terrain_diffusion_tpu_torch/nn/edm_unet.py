@@ -10,8 +10,10 @@ and parameter names are the reference state-dict names, e.g.
 The input and output 3x3 convs on maps of at least 128 x 128 pixels run
 through the hand-written conv kernel (``ops/fused_block.py::conv3x3``),
 except in a training forward or one autograd records through, which runs
-the plain path throughout (``nn/layers.py``).  ``forward(training=True,
-generator=g)`` mirrors JAX's ``apply(training=True, dropout_key=k)``: one
+the plain path throughout (``nn/layers.py``), and except where the
+model's ``block_kernels`` switch is off (``layers.with_block_impl``).
+``forward(training=True, generator=g)`` mirrors JAX's
+``apply(training=True, dropout_key=k)``: one
 dropout seed a plan entry is drawn from ``g``, in plan order, as
 ``jax.random.split(dropout_key, n_blocks)`` gives one key each.
 """
@@ -126,6 +128,8 @@ def _enc_dec_plan(cfg: EDMUnetConfig):
 
 
 class EDMUnet2D(nn.Module):
+    block_kernels = True  # the 3x3-conv kernel on the in / out conv (with_block_impl)
+
     def __init__(self, config: EDMUnetConfig, *, device,
                  generator: torch.Generator):
         super().__init__()
@@ -185,9 +189,10 @@ class EDMUnet2D(nn.Module):
 
     def forward(self, x, noise_labels=None, conditional_inputs=None,
                 return_logvar: bool = False, training: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, rows=None):
         """x is NHWC (N, H, W, in_channels).  ``training`` with a CPU
-        ``generator`` applies the blocks' dropout."""
+        ``generator`` applies the blocks' dropout (for the ``rows`` of the
+        global batch that x holds, in data-parallel training)."""
         cfg = self.config
         emb = self.compute_embeddings(noise_labels, conditional_inputs)
         if emb is not None:
@@ -203,12 +208,12 @@ class EDMUnet2D(nn.Module):
             if kind == "conv":
                 x = self._conv3x3(self.enc[name], x, training=training)
             else:
-                x = self.enc[name](x, emb, training=training, dropout_seed=seed)
+                x = self.enc[name](x, emb, training=training, dropout_seed=seed, rows=rows)
             skips.append(x)
         for name, _kind, _cin, _cout, _opts in self.dec_plan:
             skip = skips.pop() if "block" in name else None
             x = self.dec[name](x, emb, skip, concat_w=cfg.concat_balance, training=training,
-                               dropout_seed=next(seeds))
+                               dropout_seed=next(seeds), rows=rows)
         x = self._conv3x3(self.out_conv, x, getattr(self, "out_gain", None), training)
         if return_logvar:
             lv_in = torch.log(torch.tan(noise_labels) / 8.0)
@@ -216,12 +221,12 @@ class EDMUnet2D(nn.Module):
             return x, logvar.reshape(-1, 1, 1, cfg.n_logvar)
         return x
 
-    @staticmethod
-    def _conv3x3(conv: MPConv, x, gain=None, training: bool = False):
+    def _conv3x3(self, conv: MPConv, x, gain=None, training: bool = False):
         """The in/out 3x3 conv: the hand-written kernel on large maps, but in
-        a training forward or one autograd records through."""
+        a training forward, one autograd records through, or with the
+        model's ``block_kernels`` off."""
         gain = 1.0 if gain is None else gain
-        if x.shape[1] * x.shape[2] >= FUSED_MIN_PIXELS and not training \
+        if self.block_kernels and x.shape[1] * x.shape[2] >= FUSED_MIN_PIXELS and not training \
                 and not autograd_live(x, conv.weight, gain):
             w = oihw_to_hwio(conv.prepared_weight(gain)).contiguous()
             return conv3x3(x.contiguous(), w)

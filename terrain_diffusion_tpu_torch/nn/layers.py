@@ -24,6 +24,11 @@ padding, silu; JAX's ``block_eligible``) whose output map has at least
 kernel (``ops/fused_block.py``), the JAX package's rule for its Pallas
 kernel without the TPU batch cutover; smaller maps and every other block
 run the plain path, on every device.
+``block_kernels`` (an attribute of each block and each ``EDMUnet2D``, True
+by default) is the model's switch for the block and 3x3-conv kernels:
+``with_block_impl(model, "xla")`` gives the model with it off (JAX's
+``block_impl="xla"``), so every block and in / out conv runs the plain
+path, while attention keeps following ``attention_impl``.
 A block built with ``attention_impl="pallas"`` (the JAX package's value
 for its Pallas kernel, set through a model's ``block_kwargs``) runs its
 attention core through the hand-written attention kernel
@@ -41,10 +46,15 @@ built with ``dropout`` p > 0 drops the emb-modulated silu's output before
 1 - p and scaling kept values by 1 / (1 - p); the mask is drawn from a
 generator seeded by the block's ``dropout_seed``.  ``normalize_weights_``
 is the forced re-normalization after each optimizer update
-(``norm_weights_tree``).
+(``norm_weights_tree``).  In data-parallel training ``rows``
+(``parallel.mesh.Rows``) says which rows of the global batch the forward
+holds: the mask is drawn at the global batch's shape and cut to them, so
+the ranks together drop what one process would.
 """
 from __future__ import annotations
 
+import copy
+import itertools
 import math
 
 import numpy as np
@@ -61,6 +71,7 @@ from terrain_diffusion_tpu_torch.ops.nhwc import (conv2d_nhwc, conv_transpose2d_
                                                  oihw_to_hwio)
 
 FUSED_MIN_PIXELS = 128 * 128
+BLOCK_IMPLS = ("pallas", "xla")  # JAX's block_impl values: kernels, plain path
 
 
 def _randn(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -190,8 +201,35 @@ def normalize_weights_(model: nn.Module) -> None:
                 p.copy_(mp.normalize(p))
 
 
+def shared_copy(model: nn.Module) -> nn.Module:
+    """A copy of ``model``'s modules that shares its parameters and buffers
+    (JAX: a new model object over the same parameter tree)."""
+    memo = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    return copy.deepcopy(model, memo)
+
+
+def with_block_impl(model: nn.Module, block_impl: str) -> nn.Module:
+    """``model`` with its block and 3x3-conv kernels on ("pallas") or off
+    ("xla"): the model itself where every switch already says so, else a
+    ``shared_copy`` with the switches set, so that two users of one model
+    can differ."""
+    if block_impl not in BLOCK_IMPLS:
+        raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, got {block_impl!r}")
+    on = block_impl == "pallas"
+    switched = [m for m in model.modules() if hasattr(m, "block_kernels")]
+    if all(m.block_kernels == on for m in switched):
+        return model
+    model = shared_copy(model)
+    for m in model.modules():
+        if hasattr(m, "block_kernels"):
+            m.block_kernels = on
+    return model
+
+
 class UNetBlock(nn.Module):
     """One magnitude-preserving U-Net block."""
+
+    block_kernels = True  # the fused-block kernel where eligible (with_block_impl)
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  device, generator: torch.Generator, mode: str = "enc",
@@ -288,13 +326,15 @@ class UNetBlock(nn.Module):
         return self._tail(out)
 
     def forward(self, x, emb, skip=None, concat_w: float = 0.3, training: bool = False,
-                dropout_seed=None):
-        """``training`` turns on dropout (with ``dropout_seed`` given) and,
+                dropout_seed=None, rows=None):
+        """``training`` turns on dropout (with ``dropout_seed`` given; its
+        mask drawn for the global batch and cut to ``rows`` where given) and,
         as any forward autograd records through, keeps the plain path."""
         h, w = x.shape[1], x.shape[2]
         f = {"up": 2.0, "down": 0.5}.get(self.resample_mode, 1.0)
         kernels = not training and not autograd_live(x, emb, skip, *self.parameters())
-        fused = kernels and self.kernel_block and (h * f) * (w * f) >= FUSED_MIN_PIXELS
+        fused = (kernels and self.block_kernels and self.kernel_block
+                 and (h * f) * (w * f) >= FUSED_MIN_PIXELS)
         # the parameter-free nearest-up runs inside the fused kernel
         defer_up = (fused and self.resample_mode == "up" and skip is None
                     and self.resample is None)
@@ -327,7 +367,9 @@ class UNetBlock(nn.Module):
             y = act(y)
         if training and self.dropout > 0 and dropout_seed is not None:
             mask_gen = torch.Generator(device=y.device).manual_seed(int(dropout_seed))
-            keep = torch.rand(y.shape, generator=mask_gen, device=y.device) < 1.0 - self.dropout
+            shape = y.shape if rows is None else (rows.total, *y.shape[1:])
+            keep = torch.rand(shape, generator=mask_gen, device=y.device) < 1.0 - self.dropout
+            keep = keep if rows is None else rows.take(keep)
             y = torch.where(keep, y / (1.0 - self.dropout), 0.0)
         y = self.conv_res1(y)
         if self.mode == "dec" and self.conv_skip is not None:

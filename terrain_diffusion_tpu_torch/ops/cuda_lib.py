@@ -25,7 +25,11 @@ implementation the plain version, and its Meta implementation the output's
 shape and type, so that fake tensors and ``torch.export`` trace it as one
 node.  The wrappers call the operator, so eager code and an exported
 program reach the kernels by the same route; a program saved by
-``torch.export.save`` loads where this package is imported.
+``torch.export.save`` loads where this package is imported.  The CUDA
+implementation runs under ``torch.cuda.device`` of its first tensor, so a
+launch goes to that tensor's card and stream whichever device is current;
+the kernels keep their one-time launch state (shared-memory opt-in,
+occupancy) per device (``csrc/conv3x3.cuh::PerDevice``).
 """
 from __future__ import annotations
 
@@ -105,7 +109,14 @@ def register_op(schema: str, *, cuda, cpu, meta):
     overload, ``torch.ops.tdt.<name>.default``."""
     name = schema.split("(", 1)[0]
     OPS.define(schema)
-    for fn, key in ((cuda, "CUDA"), (cpu, "CPU"), (meta, "Meta")):
+
+    def on_device(x, *args):  # the launch runs on x's card, on that card's stream
+        if x.device.index == torch.cuda.current_device():  # the one-card path: no guard
+            return cuda(x, *args)
+        with torch.cuda.device(x.device):
+            return cuda(x, *args)
+
+    for fn, key in ((on_device, "CUDA"), (cpu, "CPU"), (meta, "Meta")):
         OPS.impl(name, fn, key)
     return getattr(torch.ops.tdt, name).default
 

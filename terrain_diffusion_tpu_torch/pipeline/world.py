@@ -31,6 +31,20 @@ the pipeline's device one batch per call, or the portable PCG64 host field.
 Either way any tile is identical regardless of batch composition or
 evaluation order.
 
+``block_impl="pallas"`` (the default, as in JAX) lets the stage models'
+blocks and in / out 3x3 convs take the hand-written kernels where they are
+eligible; ``"xla"`` sends them to the plain path (``with_block_impl``; the
+world's models are then copies that share the given models' weights).
+Attention follows each model's ``attention_impl`` either way.
+
+``mesh=`` (a one-process ``parallel.Mesh``) serves tile-parallel: every
+stage's batch buckets become multiples of the slot count
+(``_mesh_buckets``), and each model forward splits its batch over the
+slots, runs each chunk on its slot's replica of the model and gathers the
+results on the world's device in order.  Noise, conditioning, blending and
+composition stay on the world's device, keyed by tile position, so no tile
+changes; there is no collective, as in JAX.
+
 ``caching_strategy="indirect"`` keeps the stage windows in an HDF5 world
 file (``bind(hdf5_file)``; ``"TEMP"`` makes a temporary one that ``close``
 removes) in the JAX package's layout, so a world written by either package
@@ -49,6 +63,7 @@ import torch
 
 from terrain_diffusion_tpu_torch import use_full_f32
 from terrain_diffusion_tpu_torch.nn import torch_compat
+from terrain_diffusion_tpu_torch.nn.layers import BLOCK_IMPLS, with_block_impl
 from terrain_diffusion_tpu_torch.ops import mp
 from terrain_diffusion_tpu_torch.ops.image import (avg_pool, grid_sample_bilinear,
                                                    max_pool, min_pool, signed_square,
@@ -58,6 +73,7 @@ from terrain_diffusion_tpu_torch.ops.noise_field import (gaussian_noise_patch,
                                                         threefry_noise_batch)
 from terrain_diffusion_tpu_torch.ops.rng_portable import next_seed
 from terrain_diffusion_tpu_torch.ops.windows import linear_weight_window
+from terrain_diffusion_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from terrain_diffusion_tpu_torch.pipeline.postprocessing import local_baseline_temperature
 from terrain_diffusion_tpu_torch.pipeline.synthetic_map import make_synthetic_map_factory
 from terrain_diffusion_tpu_torch.runtime.infinite_tensor import (InfiniteTensor,
@@ -122,9 +138,15 @@ class WorldPipeline:
                  cache_limit: int | None = 100 * 1024 * 1024,
                  onestep_latent: bool = False, decoder_tile_size: int = 512,
                  decoder_tile_stride: int = 384, noise_mode: str = "threefry",
+                 block_impl: str = "pallas", mesh: Mesh | None = None,
                  device="cuda", **deprecated_kwargs):
         if T not in (1, 2):
             raise ValueError(f"T must be 1 or 2, got {T}")
+        if block_impl not in BLOCK_IMPLS:
+            raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, got {block_impl!r}")
+        if mesh is not None and (not isinstance(mesh, Mesh) or mesh.group):
+            raise TypeError("mesh must be a one-process parallel.Mesh (Mesh.from_devices or "
+                            f"make_mesh outside a process group), got {mesh!r}")
         if noise_mode not in ("threefry", "portable"):
             raise ValueError(f"unknown noise mode {noise_mode!r}")
         if dtype not in COMPUTE_DTYPES:
@@ -143,6 +165,9 @@ class WorldPipeline:
         self.decoder_tile_size = decoder_tile_size
         self.decoder_tile_stride = decoder_tile_stride
         self.noise_mode = noise_mode
+        self.block_impl = block_impl
+        self.mesh = mesh
+        self._replicas = {}  # id(model) -> the model's replica on each mesh slot
         self.compute_dtype = COMPUTE_DTYPES[dtype]
         self.device = torch.device(device)
         self.kwargs = {
@@ -213,9 +238,12 @@ class WorldPipeline:
             torch_compat.save_model(model, os.path.join(save_directory, folder))
 
     def set_models(self, coarse, base, decoder):
-        """Attach the three stage models (``EDMUnet2D`` modules)."""
+        """Attach the three stage models (``EDMUnet2D`` modules), with the
+        world's ``block_impl``."""
         self.coarse_model, self.base_model, self.decoder_model = (
-            m.to(self.device).eval() for m in (coarse, base, decoder))
+            with_block_impl(m.to(self.device).eval(), self.block_impl)
+            for m in (coarse, base, decoder))
+        self._replicas = {}
         if self.tile_store is not None:
             self._build_hierarchy()  # window fns must see the new models
         return self
@@ -293,6 +321,7 @@ class WorldPipeline:
                                   compression_opts=self._compression_opts)
             store.set_params({"seed": self.seed, "kwargs": self.kwargs})
             self.tile_store = store
+        self._replicas = {}
         self._init_conditioning()
         self._build_hierarchy()
 
@@ -411,6 +440,29 @@ class WorldPipeline:
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
     # ==================================================================
+    # Mesh (tile-parallel serving)
+    # ==================================================================
+    def _mesh_buckets(self, buckets) -> tuple:
+        """Batch buckets scaled to multiples of the mesh's slot count."""
+        n = self.mesh.size if self.mesh is not None else 1
+        if n == 1:
+            return tuple(buckets)
+        return tuple(sorted({max(b, 1) * n for b in buckets}))
+
+    def _forward(self, model, x, noise_labels, cond):
+        """``model(x, noise_labels, cond)`` on the world's device; with a mesh,
+        each slot's replica takes its chunk of the batch (a padded bucket, a
+        multiple of the slots; all chunks are launched before any is
+        gathered) and the outputs are joined in order."""
+        if self.mesh is None:
+            return model(x, noise_labels, cond)
+        if id(model) not in self._replicas:  # set_models and rebuild drop them
+            self._replicas[id(model)] = replicate(self.mesh, model)
+        outs = [rep(*shard) for rep, shard in zip(
+            self._replicas[id(model)], shard_batch(self.mesh, (x, noise_labels, cond)))]
+        return torch.cat([o.to(self.device) for o in outs])
+
+    # ==================================================================
     # Helpers
     # ==================================================================
     def _tensor(self, a) -> torch.Tensor:
@@ -470,8 +522,9 @@ class WorldPipeline:
             def model_fn(scaled, sigma):
                 label = float(trigflow_precondition_noise(sigma, SD))
                 x_in = torch.cat([scaled, cond_img], dim=1).permute(0, 2, 3, 1).to(dt)
-                out = model(x_in, torch.full((B,), label, device=self.device, dtype=dt),
-                            cond_scalars)
+                out = self._forward(model, x_in,
+                                    torch.full((B,), label, device=self.device, dtype=dt),
+                                    cond_scalars)
                 return out.permute(0, 3, 1, 2).float()
 
             sample = sample_dpm(model_fn, x, SCHED, 20) / SD
@@ -484,7 +537,7 @@ class WorldPipeline:
                                     avg_pool(sample[:, 2:], pool)], dim=1)
             return torch.cat([sample * wwin, wwin.expand(B, 1, *wwin.shape)], dim=1)
 
-        buckets = (1, 2, 4, 8, 16, 32)
+        buckets = self._mesh_buckets((1, 2, 4, 8, 16, 32))
         return InfiniteTensor(
             lambda ctxs: self._timed("coarse", lambda: f(ctxs)),
             TensorWindow((7, TILE // pool, TILE // pool), (7, STRIDE // pool, STRIDE // pool)),
@@ -528,7 +581,8 @@ class WorldPipeline:
                     else torch.zeros((B, 5, TILE, TILE), device=self.device))
             x_t = torch.cos(t) * prev + torch.sin(t) * (z * SD)
             x_in = (x_t / SD).permute(0, 2, 3, 1).to(dt)
-            pred = -model(x_in, t.expand(B).to(dt), [self._build_cond(coarses).to(dt)])
+            pred = -self._forward(model, x_in, t.expand(B).to(dt),
+                                  [self._build_cond(coarses).to(dt)])
             pred = pred.permute(0, 3, 1, 2).float()
             sample = (torch.cos(t) * x_t - torch.sin(t) * SD * pred) / SD
             return torch.cat([sample * wwin, wwin.expand(B, 1, TILE, TILE)], dim=1)
@@ -543,8 +597,8 @@ class WorldPipeline:
         t_inter = [] if self.onestep_latent else [float(np.arctan(0.35 / 0.5))]
         out_win = TensorWindow((6, TILE, TILE), (6, STRIDE, STRIDE))
         coarse_win = TensorWindow((7, 4, 4), (7, 1, 1), offset=(0, -1, -1))
-        kw = dict(batch_buckets=self._batch_sizes, tile_store=self.tile_store,
-                  device=self.device, shape=(6, None, None))
+        kw = dict(batch_buckets=self._mesh_buckets(self._batch_sizes),
+                  tile_store=self.tile_store, device=self.device, shape=(6, None, None))
         init_f = self._latent_fn(t_init, 5819, with_prev=False)
         step_fs = [self._latent_fn(t, 5820 + i, with_prev=True)
                    for i, t in enumerate(t_inter)]
@@ -600,7 +654,7 @@ class WorldPipeline:
                 t = torch.tensor(t_val, dtype=torch.float32, device=self.device)
                 x_t = torch.cos(t) * sample + torch.sin(t) * (z * SD)
                 x_in = torch.cat([x_t / SD, up], dim=1).permute(0, 2, 3, 1).to(dt).contiguous()
-                pred = -model(x_in, t.expand(B).to(dt), [])
+                pred = -self._forward(model, x_in, t.expand(B).to(dt), [])
                 pred = pred.permute(0, 3, 1, 2).float()
                 sample = torch.cos(t) * x_t - torch.sin(t) * SD * pred
             sample = sample / SD
@@ -612,7 +666,7 @@ class WorldPipeline:
             args=(self.latents,),
             args_windows=(TensorWindow((6, TILE // lc, TILE // lc),
                                        (6, STRIDE // lc, STRIDE // lc)),),
-            batch_buckets=(1, 2, 4, 8, 16), tile_store=self.tile_store,
+            batch_buckets=self._mesh_buckets((1, 2, 4, 8, 16)), tile_store=self.tile_store,
             tensor_id="init_residual_map", device=self.device, shape=(2, None, None))
 
     # ==================================================================

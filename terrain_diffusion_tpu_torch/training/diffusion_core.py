@@ -21,6 +21,13 @@ tests) give the same loss on any device.
 ``scale_by_adam`` and the learning rate, written out (``ClippedAdam``);
 ``make_train_step`` adds the forced weight re-normalization after each
 update (EDM2).  Batches are NHWC, as in JAX.
+
+Data-parallel training (``parallel/distributed.py``): each rank holds
+``rows`` of the global batch (``parallel.mesh.Rows``).  Every draw is made
+at the global batch's shape and cut to those rows, dropout masks too, so
+the ranks together draw what one process draws; the train step averages
+the gradients over the ranks before the update, and the clip then acts on
+the global gradient's norm, as JAX's does.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 
 from terrain_diffusion_tpu_torch.nn.layers import normalize_weights_
 from terrain_diffusion_tpu_torch.nn.torch_compat import name_map
+from terrain_diffusion_tpu_torch.parallel.distributed import all_reduce_mean_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,18 +52,23 @@ class DiffusionLossConfig:
     sigma_scale_eps: float = 0.05
 
 
-def draws(images: torch.Tensor, generator: torch.Generator) -> dict:
+def draws(images: torch.Tensor, generator: torch.Generator, rows=None) -> dict:
     """One step's random numbers, drawn on the CPU from ``generator`` and
     moved to the images' device: ``sigma_normal`` (N, 1, 1, 1) and ``noise``
     (the images' shape) standard normals, and ``dropout_seed`` (an int)
     that seeds the student's dropout generator (JAX: k_sigma, k_noise,
-    k_drop of ``jax.random.split(key, 3)``)."""
-    n = images.shape[0]
+    k_drop of ``jax.random.split(key, 3)``).  With ``rows`` the images
+    are those rows of a global batch: the normals are drawn for the global
+    batch and cut to them, and ``rows`` rides along for the dropout."""
+    n = images.shape[0] if rows is None else rows.total
     sigma_normal = torch.randn((n, 1, 1, 1), generator=generator)
-    noise = torch.randn(tuple(images.shape), generator=generator)
+    noise = torch.randn((n, *images.shape[1:]), generator=generator)
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    if rows is not None:
+        sigma_normal, noise = rows.take(sigma_normal), rows.take(noise)
     return {"sigma_normal": sigma_normal.to(images.device),
-            "noise": noise.to(images.device, images.dtype), "dropout_seed": seed}
+            "noise": noise.to(images.device, images.dtype), "dropout_seed": seed,
+            "rows": rows}
 
 
 def _dropout_generator(d: dict) -> torch.Generator:
@@ -88,7 +101,8 @@ def diffusion_loss(model, batch: dict, d: dict, cfg: DiffusionLossConfig,
     x = _cat_cond(x_t / sd, cond_img)
 
     model_output, logvar = model(x, cnoise, cond_inputs, return_logvar=True,
-                                 training=training, generator=_dropout_generator(d))
+                                 training=training, generator=_dropout_generator(d),
+                                 rows=d.get("rows"))
     pred_v_t = -sd * model_output
     v_t = torch.cos(t) * noise - torch.sin(t) * images
     loss = (1.0 / (torch.exp(logvar) * sd ** 2)) * (pred_v_t - v_t) ** 2 + logvar
@@ -152,7 +166,7 @@ def consistency_loss(model, teacher_fn: Callable, batch: dict, d: dict,
     def model_wrapper(x_over_sd, t_in):
         pred, logvar = model(_cat_cond(x_over_sd, cond_img), t_in.reshape(-1), cond_inputs,
                              return_logvar=True, training=training,
-                             generator=_dropout_generator(d))
+                             generator=_dropout_generator(d), rows=d.get("rows"))
         return -pred, logvar
 
     v_x = torch.cos(t) * torch.sin(t) * dxt_dt / sd
@@ -203,14 +217,15 @@ def consistency_loss(model, teacher_fn: Callable, batch: dict, d: dict,
 
 def autoencoder_loss(ae, batch: dict, key, kl_weight: float = 1e-5,
                      perceptual_fn: Optional[Callable] = None,
-                     perceptual_weight: float = 1.0):
+                     perceptual_weight: float = 1.0, rows=None):
     """VAE loss: MAE + kl_weight * KL (+ perceptual_weight * the optional
     perceptual term), the same for training and validation: both draw a
     posterior sample, from the threefry ``key`` (``ops/noise_field.py``,
-    JAX's ``key``: the same key gives JAX's eps)."""
+    JAX's ``key``: the same key gives JAX's eps; for the global batch, cut
+    to ``rows``, in data-parallel training)."""
     images = batch["image"]
     means, logvars = ae.preencode(images)
-    z = ae.postencode(means, logvars, key=key)
+    z = ae.postencode(means, logvars, key=key, rows=rows)
     recon = ae.decode(z)
     mae = torch.abs(recon - images).mean()
     kl = 0.5 * (means ** 2 + torch.exp(logvars) - 1.0 - logvars).mean()
@@ -305,12 +320,27 @@ def make_optimizer(betas=(0.9, 0.99), eps: float = 1e-8,
     return ClippedAdam(betas=betas, eps=eps, grad_clip=grad_clip)
 
 
+def gradients(params: dict, loss=None) -> dict:
+    """Each parameter's gradient (zeros where the loss does not reach it),
+    from ``.grad`` after ``loss.backward()``, or by ``torch.autograd.grad``
+    of ``loss`` where given; in a process group, averaged over the ranks."""
+    if loss is None:
+        grads = [p.grad for p in params.values()]
+    else:
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads = {k: g if g is not None else torch.zeros_like(p)
+             for (k, p), g in zip(params.items(), grads)}
+    all_reduce_mean_(grads.values())
+    return grads
+
+
 def make_train_step(loss_fn: Callable, optimizer: ClippedAdam, renorm_weights: bool = True):
     """``step(model, opt_state, batch, generator, lr) -> metrics``: the loss
-    ``loss_fn(model, batch, generator) -> (loss, aux)``, its gradients, one
-    optimizer update of the model's ``trained_tensors`` in place and, with
-    ``renorm_weights``, ``normalize_weights_``.  Metrics are detached 0-d
-    tensors (no host sync here): loss, grad_norm and the loss's aux."""
+    ``loss_fn(model, batch, generator) -> (loss, aux)``, its gradients
+    (averaged over the ranks in a process group), one optimizer update of
+    the model's ``trained_tensors`` in place and, with ``renorm_weights``,
+    ``normalize_weights_``.  Metrics are detached 0-d tensors (no host sync
+    here): loss, grad_norm and the loss's aux."""
 
     def step(model, opt_state, batch, generator, lr):
         params = trained_tensors(model)
@@ -318,9 +348,7 @@ def make_train_step(loss_fn: Callable, optimizer: ClippedAdam, renorm_weights: b
             p.grad = None
         loss, aux = loss_fn(model, batch, generator)
         loss.backward()
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
-        g_norm = optimizer.update(params, grads, opt_state, lr)
+        g_norm = optimizer.update(params, gradients(params), opt_state, lr)
         for p in params.values():
             p.grad = None
         if renorm_weights:

@@ -73,14 +73,14 @@ class AutoencoderTrainer(TrainerBase):
             betas=tuple(opt_kwargs.get("betas", (0.9, 0.99))),
             grad_clip=float(tr.get("gradient_clip_val", 10.0)))
         self._step = make_train_step(
-            lambda model, batch, generator: self._loss(model, batch,
-                                                       key_from_generator(generator)),
+            lambda model, batch, generator: self._loss(
+                model, batch, key_from_generator(generator), batch.get("_rows")),
             self.optimizer)
 
-    def _loss(self, model, batch, key):
+    def _loss(self, model, batch, key, rows=None):
         return autoencoder_loss(model, batch, key, kl_weight=self.kl_weight,
                                 perceptual_fn=self.perceptual_fn,
-                                perceptual_weight=self.perceptual_weight)
+                                perceptual_weight=self.perceptual_weight, rows=rows)
 
     def init_state(self, generator: torch.Generator, save_dir=None) -> dict:
         self.model = self.spec.build(self.device, generator).train()
@@ -91,8 +91,10 @@ class AutoencoderTrainer(TrainerBase):
     def train_step(self, state: dict, batch: dict, generator: torch.Generator,
                    counters: dict) -> dict:
         lr = self.lr_sched.get(counters["seen"])
+        local, rows = self.shard(batch)
         metrics = self._step(self.model, state["opt_state"],
-                             {"image": self.to_device(batch["image"])}, generator, lr)
+                             {"image": self.to_device(local["image"]), "_rows": rows},
+                             generator, lr)
         return self._finish_step(state, metrics, np.shape(batch["image"])[0], counters, lr)
 
     @torch.no_grad()

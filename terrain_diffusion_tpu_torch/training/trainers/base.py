@@ -6,6 +6,12 @@ drives ``train_step`` with host-prefetched numpy batches.  A checkpoint
 directory holds ``saved_model/`` in the reference format
 (``nn/torch_compat.save_model``) and ``train_state.pt``: the optimizer
 state, the EMA state and the counters.
+
+Data-parallel training: ``train.py`` sets ``mesh`` to the process group's
+mesh, and ``train_step`` gets the global batch; ``shard`` gives this
+rank's rows of it (``parallel.shard_batch``) and their ``Rows``, at which
+each trainer cuts the step's draws, made for the global batch.  The
+``seen`` counter counts the global batch.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 
 from terrain_diffusion_tpu_torch.nn import torch_compat
+from terrain_diffusion_tpu_torch.parallel.mesh import local_rows, shard_batch
 from terrain_diffusion_tpu_torch.training.diffusion_core import trained_tensors
 from terrain_diffusion_tpu_torch.training.phema import PostHocEMA
 from terrain_diffusion_tpu_torch.training.utils import to_cpu
@@ -22,6 +29,7 @@ from terrain_diffusion_tpu_torch.training.utils import to_cpu
 
 class TrainerBase:
     model = None  # set by subclass: the trained nn.Module
+    mesh = None  # a process group's mesh in data-parallel training
 
     def __init__(self, config: dict, resolved: dict, device):
         self.config = config
@@ -35,6 +43,14 @@ class TrainerBase:
     def train_step(self, state: dict, batch: dict, generator: torch.Generator,
                    counters: dict) -> dict:
         raise NotImplementedError
+
+    def shard(self, batch: dict):
+        """(this rank's rows of the global ``batch``, their ``Rows``, or None
+        outside data-parallel training)."""
+        if self.mesh is None:
+            return batch, None
+        return shard_batch(self.mesh, batch), local_rows(self.mesh,
+                                                         np.shape(batch["image"])[0])
 
     def to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)

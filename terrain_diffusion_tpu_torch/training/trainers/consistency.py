@@ -58,7 +58,8 @@ class ConsistencyTrainer(TrainerBase):
         self._step = make_train_step(self._loss, self.optimizer)
 
     def _loss(self, model, batch, generator):
-        return consistency_loss(model, self.teacher, batch, draws(batch["image"], generator),
+        return consistency_loss(model, self.teacher, batch,
+                                draws(batch["image"], generator, batch.get("_rows")),
                                 self.loss_cfg, batch["_step"], guide_fn=self.guide)
 
     def init_state(self, generator: torch.Generator, save_dir=None) -> dict:
@@ -86,6 +87,8 @@ class ConsistencyTrainer(TrainerBase):
     def train_step(self, state: dict, batch: dict, generator: torch.Generator,
                    counters: dict) -> dict:
         lr = self.lr_sched.get(counters["seen"])
+        local, rows = self.shard(batch)
         metrics = self._step(self.model, state["opt_state"],
-                             self.prepare_batch(batch, counters["step"]), generator, lr)
+                             {**self.prepare_batch(local, counters["step"]), "_rows": rows},
+                             generator, lr)
         return self._finish_step(state, metrics, np.shape(batch["image"])[0], counters, lr)

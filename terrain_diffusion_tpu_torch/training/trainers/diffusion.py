@@ -42,7 +42,9 @@ class DiffusionTrainer(TrainerBase):
             grad_clip=float(tr.get("gradient_clip_val", 10.0)))
 
         def loss_fn(model, batch, generator):
-            return diffusion_loss(model, batch, draws(batch["image"], generator), self.loss_cfg)
+            return diffusion_loss(model, batch,
+                                  draws(batch["image"], generator, batch.get("_rows")),
+                                  self.loss_cfg)
 
         self._step = make_train_step(loss_fn, self.optimizer)
 
@@ -63,8 +65,9 @@ class DiffusionTrainer(TrainerBase):
     def train_step(self, state: dict, batch: dict, generator: torch.Generator,
                    counters: dict) -> dict:
         lr = self.lr_sched.get(counters["seen"])
-        metrics = self._step(self.model, state["opt_state"], self.prepare_batch(batch),
-                             generator, lr)
+        local, rows = self.shard(batch)
+        metrics = self._step(self.model, state["opt_state"],
+                             {**self.prepare_batch(local), "_rows": rows}, generator, lr)
         return self._finish_step(state, metrics, np.shape(batch["image"])[0], counters, lr)
 
     @torch.no_grad()

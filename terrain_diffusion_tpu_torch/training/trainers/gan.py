@@ -25,7 +25,11 @@
 
 The step's random numbers come from its generator (``draw``): the latent z,
 inject mode's u, fixed-share u and image noise, and the crop offsets, so
-the same draws (JAX's, in the tests) give the same step.  Every forward
+the same draws (JAX's, in the tests) give the same step.  In data-parallel
+training they are drawn for the global batch and cut to this rank's rows,
+each optimizer averages its own gradients over the ranks, and the KL
+term's batch mean and variance are the global batch's
+(``distributed.batch_mean`` / ``batch_var``).  Every forward
 autograd records runs the plain path; the discriminator phase's fakes and
 the FID samples are generated under no_grad, inference forwards that on
 the card take the kernels at maps of 128 x 128 pixels and up.  A checkpoint
@@ -41,7 +45,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from terrain_diffusion_tpu_torch.training.diffusion_core import make_optimizer, trained_tensors
+from terrain_diffusion_tpu_torch.parallel.distributed import batch_mean, batch_var
+from terrain_diffusion_tpu_torch.parallel.mesh import take_rows
+from terrain_diffusion_tpu_torch.training.diffusion_core import (gradients, make_optimizer,
+                                                                 trained_tensors)
 from terrain_diffusion_tpu_torch.training.trainers.base import (TrainerBase, ema_for,
                                                                load_opt_state)
 from terrain_diffusion_tpu_torch.training.utils import to_cpu
@@ -178,9 +185,10 @@ class GANTrainer(TrainerBase):
 
     # -- the step -----------------------------------------------------------
     def step(self, state: dict, real, d: dict, lr: float, b2: float, pct_fixed: float,
-             r_gamma: float, with_r1: bool) -> dict:
+             r_gamma: float, with_r1: bool, rows=None) -> dict:
         """The discriminator update, then the generator update against the
-        updated discriminator, on the draws ``d``; returns 0-d tensors."""
+        updated discriminator, on the draws ``d``; returns 0-d tensors.
+        ``rows``: the rows of the global batch ``real`` holds."""
         g_params = self.params()
         d_params = trained_tensors(self.discriminator)
         b = real.shape[0]
@@ -207,10 +215,10 @@ class GANTrainer(TrainerBase):
         fake = self._generate(self.model, real, d["g_gen"], pct_fixed)
         fake_pred = self._disc_pred(fake)
         g_loss = F.softplus(real_pred.detach() - fake_pred).mean()
-        mean = fake.mean(dim=(0, 1, 2))
+        mean = batch_mean(fake, (0, 1, 2), rows)
         # eps inside the sqrt: a zero-init out gain makes the fakes constant,
         # where d(std)/dx is NaN
-        std = torch.sqrt(fake.var(dim=(0, 1, 2), correction=0) + 1e-8)
+        std = torch.sqrt(batch_var(fake, (0, 1, 2), rows) + 1e-8)
         kl = (torch.log(1.0 / std) + (std ** 2 + mean ** 2) / 2.0 - 0.5).mean()
         range_loss = (F.relu(-2.0 - fake) ** 2 + F.relu(fake - 3.2) ** 2).mean()
         total = g_loss + self.kl_weight * kl + self.range_weight * range_loss
@@ -221,10 +229,7 @@ class GANTrainer(TrainerBase):
 
     @staticmethod
     def _update(opt, params: dict, loss, opt_state, lr, b2):
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: g if g is not None else torch.zeros_like(p)
-                 for (k, p), g in zip(params.items(), grads)}
-        return opt.update(params, grads, opt_state, lr, b2=b2)
+        return opt.update(params, gradients(params, loss), opt_state, lr, b2=b2)
 
     def train_step(self, state: dict, batch: dict, generator: torch.Generator,
                    counters: dict) -> dict:
@@ -232,10 +237,14 @@ class GANTrainer(TrainerBase):
         r_gamma, b2, pct_fixed, lr_warm = self._current(step_i)
         lr = self.lr_sched.get(counters["seen"]) * lr_warm
         with_r1 = self.r_gamma > 0 and step_i % self.r_interval == 0
-        real = self.to_device(batch["image"])
-        metrics = self.step(state, real, self.draw(real.shape, generator), lr, b2, pct_fixed,
-                            r_gamma, with_r1)
-        return self._finish_step(state, metrics, real.shape[0], counters, lr)
+        local, rows = self.shard(batch)
+        real = self.to_device(local["image"])
+        if rows is None:
+            d = self.draw(real.shape, generator)
+        else:
+            d = take_rows(self.draw((rows.total, *real.shape[1:]), generator), rows)
+        metrics = self.step(state, real, d, lr, b2, pct_fixed, r_gamma, with_r1, rows)
+        return self._finish_step(state, metrics, np.shape(batch["image"])[0], counters, lr)
 
     # -- FID evaluation ------------------------------------------------------
     @torch.no_grad()

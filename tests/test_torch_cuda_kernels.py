@@ -32,6 +32,11 @@ or runs, at batch 1, 2 and 16, and in the block's Cout <= 8 forms.  The
 shapes its rule takes) on the same maps and batches, and with the block's
 epilogues through the C entry points.
 
+A second card (``test_kernels_on_a_second_card``, skipped below two cards):
+each kernel, launched first on ``cuda:0`` and then on ``cuda:1`` with
+``cuda:0`` current, runs on ``cuda:1`` (its per-device shared-memory opt-in
+and occupancy made there) and equals its plain version, bar as below.
+
 The 16-bit forms (``*_16bit`` tests) take bf16 or fp16 activations:
 against the plain version on the same inputs the bar is 1e-2 for bf16 and
 2.5e-3 for fp16 (about 2.5 steps of the type at the largest value: both
@@ -811,3 +816,35 @@ def test_explorer_detail_raw_through_the_kernels(dev, monkeypatch):
     assert np.abs(got[0] - want[0]).max() <= 1 and got[0].std() > 0
     assert _rel(torch.from_numpy(got[1].copy()), torch.from_numpy(want[1].copy())) < TOL
     explorer.configure()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernels_on_a_second_card(dev, dt):
+    """The kernels keep their one-time launch state per device and launch
+    under their tensor's device: a block (16-bit: the wgmma core), the in
+    conv, the head and the attention, on cuda:0 and then on cuda:1 while
+    cuda:0 stays current, each equal to its plain version on cuda:1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    tol = TOL if dt == torch.float32 else TOL16[dt]
+    for index in (0, 1):
+        d = torch.device("cuda", index)
+        g = torch.Generator().manual_seed(3)
+        x = _rand(g, (2, 40, 72, 64), d).to(dt)
+        w0, w1 = (_rand(g, (3, 3, 64, 64), d, (9 * 64) ** -0.5) for _ in range(2))
+        c = _rand(g, (2, 64), d, 0.3) + 1.0
+        xin = _rand(g, (2, 40, 72, 6), d).to(dt)
+        win, whead = _rand(g, (3, 3, 6, 64), d, 0.2), _rand(g, (3, 3, 64, 1), d, 0.05)
+        qkv = _rand(g, (4, 8, 8, 576), d, 3.0).to(dt)
+        with torch.cuda.device(0):
+            got = [fb.fused_block(x, w0, w1, c, mode="dec", pixel_norm=False),
+                   fb.conv3x3(xin, win), fb.conv3x3(x, whead),
+                   attention.fused_pixelnorm_attention(qkv, 3)]
+            torch.cuda.synchronize(d)
+            assert torch.cuda.current_device() == 0
+        want = [fb.fused_block_reference(x, w0, w1, c, mode="dec", pixel_norm=False),
+                fb.conv3x3_reference(xin, win), fb.conv3x3_reference(x, whead),
+                attention.pixelnorm_attention_reference(qkv, 3)]
+        for out, ref in zip(got, want):
+            assert out.device == d and out.dtype == dt
+            assert _rel(out.float(), ref.float()) < tol
