@@ -233,6 +233,19 @@ Phases, each of which exits non-zero on failure:
    ``extract_grid_data`` of a seeded 10' global GeoTIFF at JAX's cell size,
    each checked cell equal to the raster's window.  It prints
    ``{"parallel": {...}}``, each time beside the card's name and limit.
+15. atlas (the device tile atlas and the fused stage and compose calls):
+   a float32 and a bf16 world of the production-width models at the JAX
+   defaults (threefry, T=2, decoder 512/384, the base model's attention
+   on the kernel), each on the fused path and as a staged twin sharing its
+   models (no fused stage call, no fused compose): a cold 256x256
+   ``get(pack_wire=True)``, the same tile warm, and a ``get_many`` of four
+   adjacent 256x256 tiles; then cold tiles at two fresh regions in turns
+   (fused, staged, staged, fused).  Wire bytes fused = staged, float outputs
+   within 1e-5 relative, the fused world's launches = its forwards (26 / 2
+   / 1 a decoder / decoder / base forward), its compose fused (``compose``
+   calls, no ``compose_elev``).  It prints each world's stage calls, cold
+   and warm ms on both paths, the atlas bytes and the peak GiB, and
+   ``{"atlas": {...}}``.
 Phases 5, 6 and 7's Minecraft phase each zero the launch counts before their
 requests and read them after: attention launches = base-model forwards
 (latent_init + latent_step calls), fused-block launches = 26 x decoder
@@ -254,8 +267,10 @@ positive for the float32 block and conv, and ``export_launches`` from the
 loaded decoder program, which must be positive for the float32 block and
 conv, and ``tools_launches`` from the tools phase, which must be positive
 for the three float32 kernels, and ``parallel_launches`` from the mesh
-world, which must be positive for the three float32 kernels), the card's
-name and power limit, and
+world, which must be positive for the three float32 kernels, and
+``atlas_launches`` from the atlas phase's fused worlds, which must be
+positive for the float32 and bf16 kernels), the card's name and power
+limit, and
 {"ok": true, "device": {...}}.
 """
 import configparser
@@ -997,7 +1012,7 @@ def model_phase(torch, np, attn, models, dev):
     # one latent_init window call at bucket 64, kernel vs plain attention
     pipe = WorldPipeline(seed=SEED, device=dev, log_mode="info").set_models(*models)
     t_init = float(np.arctan(float(compute_sigmas(SCHED, 20)[0]) / SD))  # as the stage has it
-    init_f = pipe._latent_fn(t_init, 5819, with_prev=False)
+    init_f = pipe._latent_program(t_init, 5819, with_prev=False)[0]
     ctxs = np.stack([np.zeros(64, np.int64), np.arange(64) // 8, np.arange(64) % 8], axis=1)
     coarse = torch.randn((64, 7, 4, 4), generator=g).to(dev)
     coarse[:, -1] = 1.0  # the window-weight channel
@@ -1063,7 +1078,7 @@ def model_phase_bf16(torch, np, fb, attn, models, dev):
 
     pipe = WorldPipeline(seed=SEED, device=dev, log_mode="info", dtype="bf16").set_models(*models)
     t_init = float(np.arctan(float(compute_sigmas(SCHED, 20)[0]) / SD))
-    init_f = pipe._latent_fn(t_init, 5819, with_prev=False)
+    init_f = pipe._latent_program(t_init, 5819, with_prev=False)[0]
     ctxs = np.stack([np.zeros(64, np.int64), np.arange(64) // 8, np.arange(64) % 8], axis=1)
     coarse = torch.randn((64, 7, 4, 4), generator=g).to(dev)
     coarse[:, -1] = 1.0
@@ -1112,11 +1127,15 @@ def stage_calls(pipe) -> dict:
 def forward_launches(pipe, calls_before, label) -> dict:
     """The launches that the model forwards the pipeline's stages ran since
     ``calls_before`` make: 26 blocks and 2 convs a decoder forward, one
-    attention a base forward."""
+    attention a base forward (a fused T=1 ``latent_t1`` call runs 1 + its
+    intermediate steps)."""
     calls = stage_calls(pipe)
     n = {k: calls.get(k, 0) - calls_before.get(k, 0)
-         for k in ("latent_init", "latent_step", "decoder")}
-    n_base, n_dec = n["latent_init"] + n["latent_step"], n["decoder"]
+         for k in ("latent_init", "latent_step", "latent_t1", "decoder")}
+    # a fused T=1 call runs init and each intermediate step: 1 + steps forwards
+    t1_forwards = 1 if getattr(pipe, "onestep_latent", False) else 2
+    n_base = n["latent_init"] + n["latent_step"] + t1_forwards * n["latent_t1"]
+    n_dec = n["decoder"]
     print(f"[{label}] base forwards {n_base}, decoder forwards {n_dec}", flush=True)
     check(n_base > 0 and n_dec > 0, f"{label}: no base or decoder forward ran")
     return {"fused_block": 26 * n_dec, "conv3x3": 2 * n_dec, "attention": n_base}
@@ -3498,6 +3517,117 @@ def parallel_phase(torch, np, cuda_lib, fb, attn, models, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# atlas phase
+# ---------------------------------------------------------------------------
+
+ATLAS_TILE = 256
+ATLAS_ROW = [(0, j, ATLAS_TILE, j + ATLAS_TILE) for j in range(768, 1792, ATLAS_TILE)]
+ATLAS_FRESH = [(8192, -8192), (-8192, 8192)]  # cold regions for the timed turns
+
+
+def stage_tensors(world) -> list:
+    """The world's stage tensors: residual, coarse and each latent phase."""
+    tensors, t = [world.residual, world.coarse], world.latents
+    while t is not world.coarse:
+        tensors.append(t)
+        t = t.args[0]
+    return tensors
+
+
+def atlas_world(torch, np, cuda_lib, fb, attn, models, dev, dtype, label) -> tuple:
+    """One type's fused world and its staged twin: the same cold tile, warm
+    tile and row of four, compared on the wire and in float32.  Returns
+    (the fused world's launches, its report)."""
+    from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
+
+    def serve(world):
+        out, ms = {}, {}
+        for name, fn in (("cold", lambda: world.get(0, 0, ATLAS_TILE, ATLAS_TILE,
+                                                    pack_wire=True)),
+                         ("warm", lambda: world.get(0, 0, ATLAS_TILE, ATLAS_TILE,
+                                                    pack_wire=True)),
+                         ("get_many", lambda: world.get_many(ATLAS_ROW, pack_wire=True)),
+                         ("float", lambda: world.get(0, 0, ATLAS_TILE, ATLAS_TILE))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn()
+            ms[name] = (time.perf_counter() - t0) * 1000
+        return out, ms
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused = WorldPipeline(seed=SEED, dtype=dtype, device=dev).set_models(*models).bind()
+    check(fused.noise_mode == "threefry" and fused.T == 2 and fused.decoder_tile_size == 512
+          and fused.residual.f_fused is not None, f"{label}: not the fused default world")
+    cuda_lib.reset_launch_counts()
+    before = stage_calls(fused)
+    got, fused_ms = serve(fused)
+    launches = check_launches(torch, cuda_lib, fb, attn, fused, before, label,
+                              dtype=fused.compute_dtype)
+    calls = stage_calls(fused)
+    check(calls.get("compose", 0) > 0 and "compose_elev" not in calls,
+          f"{label}: the fused world did not compose in one call ({calls})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nbytes = sum(t.device_cache._atlas.numel() * 4 for t in stage_tensors(fused))
+
+    staged = WorldPipeline(seed=SEED, dtype=dtype, device=dev).set_models(*models).bind()
+    for t in stage_tensors(staged):
+        t.f_fused = None
+    staged._compose_fused = lambda *a, **k: None
+    want, staged_ms = serve(staged)
+    check("compose_elev" in stage_calls(staged), f"{label}: the staged twin composed fused")
+    for name in ("cold", "warm", "get_many"):
+        pairs = zip(got[name], want[name]) if name == "get_many" else [(got[name], want[name])]
+        for k, (g, w) in enumerate(pairs):
+            check(g["elev"].dtype == np.int16 and g["climate"].dtype == np.float16,
+                  f"{label} {name}: not the wire types")
+            check(g["elev"].tobytes() == w["elev"].tobytes()
+                  and g["climate"].tobytes() == w["climate"].tobytes(),
+                  f"{label} {name} {k}: fused and staged wire bytes differ")
+    errs = [rel_err(torch.from_numpy(got["float"][key]), torch.from_numpy(want["float"][key]))
+            for key in ("elev", "climate")]
+    check(max(errs) < 1e-5, f"{label}: fused vs staged float outputs {errs} >= 1e-5")
+    # each world's first tile also pays first-use costs; two fresh regions
+    # in turns (fused, staged, staged, fused) compare the paths' cold tiles
+    turns, tiles = {"fused": [], "staged": []}, {}
+    for name, world, (i, j) in (("fused", fused, ATLAS_FRESH[0]), ("staged", staged, ATLAS_FRESH[0]),
+                                ("staged", staged, ATLAS_FRESH[1]), ("fused", fused, ATLAS_FRESH[1])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tile = world.get(i, j, i + ATLAS_TILE, j + ATLAS_TILE, pack_wire=True)
+        turns[name].append((time.perf_counter() - t0) * 1000)
+        body = tile["elev"].tobytes() + tile["climate"].tobytes()
+        check(tiles.setdefault((i, j), body) == body,
+              f"{label}: fused and staged wire bytes differ at a fresh region ({i}, {j})")
+    report = {"stage_calls": calls, "fused_ms": fused_ms, "staged_ms": staged_ms,
+              "cold_turns_ms": turns, "float_rel_err": errs, "atlas_bytes": nbytes,
+              "peak_gib": peak}
+    print(f"[{label}] fused ms {json.dumps({k: round(v, 1) for k, v in fused_ms.items()})}, "
+          f"staged ms {json.dumps({k: round(v, 1) for k, v in staged_ms.items()})}; "
+          f"fresh cold tiles in turns: fused {', '.join(f'{t:.1f}' for t in turns['fused'])}, "
+          f"staged {', '.join(f'{t:.1f}' for t in turns['staged'])} ms; "
+          f"wire bytes equal, float rel err {errs[0]:.2e} / {errs[1]:.2e}; atlases "
+          f"{nbytes / 2 ** 20:.1f} MiB; peak {peak:.2f} GiB (fused world alone)", flush=True)
+    fused.close()
+    staged.close()
+    return launches, report
+
+
+def atlas_phase(torch, np, cuda_lib, fb, attn, models, dev, card) -> dict:
+    """The device tile atlas with the fused stage and compose calls, in
+    float32 and bf16, against the staged twin.  Returns the fused worlds'
+    launches by (kernel, type)."""
+    launches, report = {}, {"card": card}
+    for dtype, label in ((None, "atlas"), ("bf16", "atlas bf16")):
+        counts, report[label] = atlas_world(torch, np, cuda_lib, fb, attn, models, dev, dtype,
+                                            label)
+        dt = torch.float32 if dtype is None else torch.bfloat16
+        launches.update({(k, dt): v for k, v in counts.items()})
+    print(json.dumps({"atlas": report}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -3570,6 +3700,8 @@ def main():
     timed("model", lambda: model_phase(torch, np, attn, models, dev))
     timed("decoder forward", lambda: decoder_forward_phase(torch, fb, models[2], dev))
     timed("api", lambda: api_phase(torch, np, cuda_lib, fb, attn, models, dev))
+    atlas_launches = timed("atlas", lambda: atlas_phase(
+        torch, np, cuda_lib, fb, attn, models, dev, card))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_dir:
         launches, f32_tile = timed("minecraft", lambda: minecraft_phase(
             torch, np, cuda_lib, fb, attn, models, dev, world_dir))
@@ -3625,7 +3757,8 @@ def main():
                            else 0,
                            "tools_launches": tools_launches.get((kernel, dt), 0),
                            "parallel_launches": parallel_launches[kernel] if not suffix
-                           else 0})
+                           else 0,
+                           "atlas_launches": atlas_launches.get((kernel, dt), 0)})
     check(all(r["evaluation_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched on the evaluation path")
     check(all(r["surface_launches"] > 0 for r in report[:2 * len(KERNELS)]),
@@ -3638,6 +3771,8 @@ def main():
           "a float32 kernel was not launched by the dev tools")
     check(all(r["parallel_launches"] > 0 for r in report[:len(KERNELS)]),
           "a float32 kernel was not launched by the mesh world")
+    check(all(r["atlas_launches"] > 0 for r in report[:2 * len(KERNELS)]),
+          "a float32 or bf16 kernel was not launched by the atlas phase's fused worlds")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -67,7 +67,7 @@ from terrain_diffusion_tpu_torch.ops.attention import (attention_eligible,
                                                        pixelnorm_attention_reference)
 from terrain_diffusion_tpu_torch.ops.cuda_lib import autograd_live
 from terrain_diffusion_tpu_torch.ops.fused_block import fused_block
-from terrain_diffusion_tpu_torch.ops.nhwc import (conv2d_nhwc, conv_transpose2d_nhwc,
+from terrain_diffusion_tpu_torch.ops.nhwc import (conv2d_nhwc, conv_transpose2d_nhwc, matmul_16,
                                                  oihw_to_hwio)
 
 FUSED_MIN_PIXELS = 128 * 128
@@ -101,7 +101,7 @@ class MPConv(nn.Module):
     def forward(self, x: torch.Tensor, gain=1.0) -> torch.Tensor:
         w = self.prepared_weight(gain).to(x.dtype)
         if w.dim() == 2:
-            return torch.matmul(x, w.t())
+            return matmul_16(x, w.t())
         return conv2d_nhwc(x, w, padding=0 if self.no_padding else w.shape[-1] // 2,
                            groups=self.groups)
 

@@ -10,7 +10,7 @@ on tensors whose last two axes are (H, W); leading axes are batch/channel.
   not depend on any library's resize implementation.
 - ``gaussian_blur``: odd kernel, reflect padding (torchvision semantics).
 - ``grid_sample_bilinear``: ``F.grid_sample(bilinear, border,
-  align_corners=False)`` written out, without the batch dim.
+  align_corners=False)`` written out, with or without a batch dim.
 """
 from __future__ import annotations
 
@@ -102,20 +102,28 @@ def avg_pool_stride1(x: torch.Tensor, win: int) -> torch.Tensor:
 
 
 def grid_sample_bilinear(features: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of (C, H, W) features at (Hout, Wout, 2) grid
-    positions (x, y in [-1, 1]), border padding, align_corners=False."""
-    c, h, w = features.shape
+    """Bilinear sample of (..., C, H, W) features at (..., Hout, Wout, 2)
+    grid positions (x, y in [-1, 1]), border padding, align_corners=False;
+    returns (..., C, Hout, Wout).  Leading dims are a batch: each map is
+    sampled at its own grid."""
+    lead = features.shape[:-3]
+    c, h, w = features.shape[-3:]
+    flat = features.reshape(-1, c, h * w)
+    n = flat.shape[0]
+    grid = grid.reshape(n, *grid.shape[-3:])
+    hout, wout = grid.shape[1:3]
     ix = ((grid[..., 0] + 1.0) * w - 1.0) * 0.5
     iy = ((grid[..., 1] + 1.0) * h - 1.0) * 0.5
     ix0 = torch.floor(ix)
     iy0 = torch.floor(iy)
-    tx = ix - ix0
-    ty = iy - iy0
+    tx = (ix - ix0)[:, None]
+    ty = (iy - iy0)[:, None]
 
     def gather(yi, xi):
         yi = torch.clamp(yi, 0, h - 1).long()
         xi = torch.clamp(xi, 0, w - 1).long()
-        return features[:, yi, xi]
+        idx = (yi * w + xi).reshape(n, 1, hout * wout).expand(n, c, hout * wout)
+        return flat.gather(2, idx).reshape(n, c, hout, wout)
 
     v00 = gather(iy0, ix0)
     v01 = gather(iy0, ix0 + 1)
@@ -123,7 +131,7 @@ def grid_sample_bilinear(features: torch.Tensor, grid: torch.Tensor) -> torch.Te
     v11 = gather(iy0 + 1, ix0 + 1)
     top = v00 * (1 - tx) + v01 * tx
     bot = v10 * (1 - tx) + v11 * tx
-    return top * (1 - ty) + bot * ty
+    return (top * (1 - ty) + bot * ty).reshape(*lead, c, hout, wout)
 
 
 def signed_sqrt(x: torch.Tensor) -> torch.Tensor:

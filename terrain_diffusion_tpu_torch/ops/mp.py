@@ -32,13 +32,35 @@ def normalize(x: torch.Tensor, dim=None, eps: float = 1e-4) -> torch.Tensor:
     return (x32 / denom).to(x.dtype)
 
 
+def _const(v: float, x: torch.Tensor) -> float:
+    """Python constant `v` as the JAX package applies it to `x`: a weakly
+    typed scalar takes x's type, so against a 16-bit x it is rounded to that
+    type first (0.7 is 0.69921875 in bf16).  PyTorch would apply it in
+    float32."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(v, dtype=x.dtype))
+    return float(v)
+
+
+def _div(x: torch.Tensor, v: float) -> torch.Tensor:
+    """x / v as XLA computes it: against a 16-bit x, a product with the
+    float32 reciprocal of v in x's type."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x * (1.0 / _const(v, x))
+    return x / v
+
+
 def mp_silu(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype in (torch.bfloat16, torch.float16):
+        # the JAX package's 16-bit sigmoid is 1 / (1 + exp(-x)), rounded to
+        # the type at each op; the float32 form rounds once
+        return _div(x * torch.sigmoid(x), 0.596)
     return (x * torch.sigmoid(x)) / 0.596
 
 
 def mp_leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
     factor = math.sqrt((1 + alpha ** 2) / 2)
-    return torch.where(x >= 0, x, alpha * x) / factor
+    return _div(torch.where(x >= 0, x, _const(alpha, x) * x), factor)
 
 
 def _resolve_weights(n: int, w) -> np.ndarray:
@@ -53,10 +75,10 @@ def mp_sum(args, w=None) -> torch.Tensor:
     """Magnitude-preserving weighted sum: sum(a_i * w_i) / ||w||_2."""
     wv = _resolve_weights(len(args), w)
     norm = float(np.linalg.norm(wv))
-    out = args[0] * float(wv[0])
+    out = args[0] * _const(wv[0], args[0])
     for a, wi in zip(args[1:], wv[1:]):
-        out = out + a * float(wi)
-    return out / norm
+        out = out + a * _const(wi, a)
+    return _div(out, norm)
 
 
 def concat_scales(n_ch, w=None) -> list:
@@ -70,7 +92,7 @@ def mp_concat(args, dim: int = -1, w=None) -> torch.Tensor:
     """Magnitude-preserving concat: each arg scaled so its contribution in
     subsequent layers is proportional to w_i regardless of channel count."""
     scales = concat_scales([a.shape[dim] for a in args], w)
-    return torch.cat([a * s for a, s in zip(args, scales)], dim=dim)
+    return torch.cat([a * _const(s, a) for a, s in zip(args, scales)], dim=dim)
 
 
 def positional_embedding_freqs(num_channels: int) -> np.ndarray:

@@ -21,12 +21,11 @@ def local_baseline_temperature(T: torch.Tensor, e: torch.Tensor, win: int = 3,
                                eps: float = 1e-6, fallback_threshold: float = 0.3):
     """Windowed land-masked regression of temperature on elevation.
 
-    T, e: (H, W) temperature [C] and elevation [m]; win: odd window (valid
-    pooling, output cropped by win-1).  Returns (T_sea, beta), each
-    (H-(win-1), W-(win-1)): sea-level baseline and local lapse rate.
+    T, e: (..., H, W) temperature [C] and elevation [m], leading dims a
+    batch; win: odd window (valid pooling, output cropped by win-1).
+    Returns (T_sea, beta), each (..., H-(win-1), W-(win-1)): sea-level
+    baseline and local lapse rate.
     """
-    T = T[None]
-    e = e[None]
     w = (e > 0).to(T.dtype)
 
     def wavg(x):
@@ -45,9 +44,10 @@ def local_baseline_temperature(T: torch.Tensor, e: torch.Tensor, win: int = 3,
     beta = torch.where(invalid, torch.full_like(beta, fallback_beta), beta)
     beta = torch.clamp(beta, beta_clip[0], beta_clip[1])
     pad = (win - 1) // 2
-    T_c = T[:, pad:T.shape[1] - pad, pad:T.shape[2] - pad]
-    e_c = e[:, pad:e.shape[1] - pad, pad:e.shape[2] - pad]
-    return (T_c - beta * e_c)[0], beta[0]
+    h, w_ = T.shape[-2:]
+    T_c = T[..., pad:h - pad, pad:w_ - pad]
+    e_c = e[..., pad:h - pad, pad:w_ - pad]
+    return T_c - beta * e_c, beta
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,8 @@ from terrain_diffusion_tpu_torch.parallel.mesh import Mesh, replicate, shard_bat
 from terrain_diffusion_tpu_torch.pipeline.postprocessing import local_baseline_temperature
 from terrain_diffusion_tpu_torch.pipeline.synthetic_map import make_synthetic_map_factory
 from terrain_diffusion_tpu_torch.runtime.infinite_tensor import (InfiniteTensor,
+                                                                 _traced_geometry,
+                                                                 assemble_from_atlas,
                                                                  ensure_regions_multi)
 from terrain_diffusion_tpu_torch.runtime.tile_store import HDF5TileStore, MemoryTileStore
 from terrain_diffusion_tpu_torch.runtime.window import TensorWindow
@@ -115,6 +117,32 @@ def resolve_hdf5_path(hdf5_file: str) -> str:
 
 def _ceil_div(a, b):
     return -((-a) // b)
+
+
+def _write_rows(out_atlas: torch.Tensor, out_slots, out: torch.Tensor):
+    """A fused stage's write: output rows ``out[:len(out_slots)]`` into
+    ``out_atlas[out_slots]``, in place (bucket padding rows are dropped)."""
+    out_atlas.index_copy_(0, torch.as_tensor(np.asarray(out_slots, np.int64),
+                                             device=out_atlas.device),
+                          out[:len(out_slots)].float())
+
+
+def _pack_elev_i16(elev: torch.Tensor) -> torch.Tensor:
+    """The wire's elevation: floor, then clip to int16."""
+    return torch.clamp(torch.floor(elev), -32768, 32767).to(torch.int16)
+
+
+def _host_copy(t: torch.Tensor | None):
+    """(host tensor, event): a card tensor's copy into pinned host memory,
+    started without waiting (ready once the event has completed); a CPU
+    tensor as it is."""
+    if t is None or t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return host, event
 
 
 class WorldPipeline:
@@ -482,6 +510,13 @@ class WorldPipeline:
     # ==================================================================
     # Coarse stage
     # ==================================================================
+    @property
+    def _defer_host(self) -> bool:
+        """Stage windows stay in the device caches until a host-side read
+        needs them, in direct mode only: the HDF5 store must see every
+        window to keep it."""
+        return self.caching_strategy == "direct"
+
     def _build_coarse_stage(self):
         TILE, STRIDE = 64, 48
         pool = self.kwargs["coarse_pooling"]
@@ -504,7 +539,7 @@ class WorldPipeline:
         model = self.coarse_model
         dt = self.compute_dtype
 
-        def f(ctxs):
+        def core(ctxs):
             seed = self.seed
             i1s = [(int(i) * (STRIDE // pool)) * pool for i in ctxs[:, 1]]
             j1s = [(int(j) * (STRIDE // pool)) * pool for j in ctxs[:, 2]]
@@ -537,12 +572,17 @@ class WorldPipeline:
                                     avg_pool(sample[:, 2:], pool)], dim=1)
             return torch.cat([sample * wwin, wwin.expand(B, 1, *wwin.shape)], dim=1)
 
+        def f_fused(ctxs, out_atlas, out_slots, arg_views):
+            self._timed("coarse", lambda: _write_rows(out_atlas, out_slots, core(ctxs)))
+
         buckets = self._mesh_buckets((1, 2, 4, 8, 16, 32))
         return InfiniteTensor(
-            lambda ctxs: self._timed("coarse", lambda: f(ctxs)),
+            lambda ctxs: self._timed("coarse", lambda: core(ctxs)),
             TensorWindow((7, TILE // pool, TILE // pool), (7, STRIDE // pool, STRIDE // pool)),
             batch_buckets=buckets, tile_store=self.tile_store,
-            tensor_id="base_coarse_map", device=self.device, shape=(7, None, None))
+            tensor_id="base_coarse_map", device=self.device, shape=(7, None, None),
+            device_cache_tiles=256, defer_host=self._defer_host,
+            f_fused=f_fused if self.mesh is None else None)
 
     # ==================================================================
     # Latent stage
@@ -565,15 +605,18 @@ class WorldPipeline:
              cond[:, 2:6, 1:3, 1:3].mean(dim=(2, 3)), cond[:, 6].reshape(B, -1),
              hist, noise_level], dim=1)
 
-    def _latent_fn(self, t_value: float, seed_offset: int, with_prev: bool):
+    def _latent_core(self, t_value: float, seed_offset: int, with_prev: bool):
+        """One TrigFlow consistency step on a batch of latent tiles:
+        ``core(ctxs, coarses, prevs)`` with the (B, 7, 4, 4) coarse windows
+        and, with ``with_prev``, the (B, 6, 64, 64) previous phase's regions;
+        shared by the staged and the fused calls and the T=1 chain."""
         TILE, STRIDE = 64, 32
         model = self.base_model
         dt = self.compute_dtype
         wwin = self._tensor(linear_weight_window(TILE))
         t = torch.tensor(t_value, dtype=torch.float32, device=self.device)
 
-        def f(ctxs, *regions):
-            prevs, coarses = regions if with_prev else (None, regions[0])
+        def core(ctxs, coarses, prevs=None):
             B = len(ctxs)
             z = self._noise(self.seed + seed_offset, ctxs[:, 1] * STRIDE,
                             ctxs[:, 2] * STRIDE, TILE, TILE, 5, TILE)
@@ -587,8 +630,51 @@ class WorldPipeline:
             sample = (torch.cos(t) * x_t - torch.sin(t) * SD * pred) / SD
             return torch.cat([sample * wwin, wwin.expand(B, 1, TILE, TILE)], dim=1)
 
+        return core
+
+    def _latent_program(self, t_value: float, seed_offset: int, with_prev: bool):
+        """(f, f_fused) of one latent phase tensor; its parents are the
+        previous phase (with ``with_prev``) and the coarse map."""
+        TILE = 64
+        core = self._latent_core(t_value, seed_offset, with_prev)
         stage = "latent_step" if with_prev else "latent_init"
-        return lambda ctxs, *regions: self._timed(stage, lambda: f(ctxs, *regions))
+
+        def f(ctxs, *regions):
+            prevs, coarses = regions if with_prev else (None, regions[0])
+            return self._timed(stage, lambda: core(ctxs, coarses, prevs))
+
+        def fused(ctxs, out_atlas, out_slots, arg_views):
+            prevs = (assemble_from_atlas(*arg_views[0], (6, TILE, TILE)) if with_prev
+                     else None)
+            coarses = assemble_from_atlas(*arg_views[-1], (7, 4, 4))
+            _write_rows(out_atlas, out_slots, core(ctxs, coarses, prevs))
+
+        def f_fused(ctxs, out_atlas, out_slots, arg_views):
+            self._timed(stage, lambda: fused(ctxs, out_atlas, out_slots, arg_views))
+
+        return f, (f_fused if self.mesh is None else None)
+
+    def _latent_t1_fused(self, t_init: float, steps):
+        """The T=1 chain's fused call: the coarse windows assembled from
+        their pool, init and every intermediate step (their latents are not
+        blended across tiles, as in the staged chain) and the write, timed
+        as one ``latent_t1`` call."""
+        if self.mesh is not None:
+            return None
+        cores = [self._latent_core(t_init, 5819, with_prev=False)] + [
+            self._latent_core(t, 5820 + i, with_prev=True) for i, t in enumerate(steps)]
+
+        def fused(ctxs, out_atlas, out_slots, arg_views):
+            coarses = assemble_from_atlas(*arg_views[0], (7, 4, 4))
+            out = cores[0](ctxs, coarses)
+            for core in cores[1:]:
+                out = core(ctxs, coarses, out)
+            _write_rows(out_atlas, out_slots, out)
+
+        def f_fused(ctxs, out_atlas, out_slots, arg_views):
+            self._timed("latent_t1", lambda: fused(ctxs, out_atlas, out_slots, arg_views))
+
+        return f_fused
 
     def _build_latent_stage(self):
         TILE, STRIDE = 64, 32
@@ -598,11 +684,13 @@ class WorldPipeline:
         out_win = TensorWindow((6, TILE, TILE), (6, STRIDE, STRIDE))
         coarse_win = TensorWindow((7, 4, 4), (7, 1, 1), offset=(0, -1, -1))
         kw = dict(batch_buckets=self._mesh_buckets(self._batch_sizes),
-                  tile_store=self.tile_store, device=self.device, shape=(6, None, None))
-        init_f = self._latent_fn(t_init, 5819, with_prev=False)
-        step_fs = [self._latent_fn(t, 5820 + i, with_prev=True)
-                   for i, t in enumerate(t_inter)]
+                  tile_store=self.tile_store, device=self.device, shape=(6, None, None),
+                  device_cache_tiles=256, defer_host=self._defer_host)
+        init_f, init_fused = self._latent_program(t_init, 5819, with_prev=False)
         if self.T == 1:
+            step_fs = [self._latent_program(t, 5820 + i, with_prev=True)[0]
+                       for i, t in enumerate(t_inter)]
+
             # init and steps chained inside one window fn: the intermediate
             # latents of a tile are never blended with its neighbours'
             def f_t1(ctxs, coarses):
@@ -612,16 +700,17 @@ class WorldPipeline:
                 return out
 
             return InfiniteTensor(f_t1, out_win, args=(self.coarse,),
-                                  args_windows=(coarse_win,),
-                                  tensor_id="latent_map_T1", **kw)
+                                  args_windows=(coarse_win,), tensor_id="latent_map_T1",
+                                  f_fused=self._latent_t1_fused(t_init, t_inter), **kw)
         tensor = InfiniteTensor(init_f, out_win, args=(self.coarse,),
-                                args_windows=(coarse_win,),
-                                tensor_id="init_latent_map", **kw)
-        for i, step_f in enumerate(step_fs):
+                                args_windows=(coarse_win,), tensor_id="init_latent_map",
+                                f_fused=init_fused, **kw)
+        for i, t in enumerate(t_inter):
+            step_f, step_fused = self._latent_program(t, 5820 + i, with_prev=True)
             tensor = InfiniteTensor(
                 step_f, out_win, args=(tensor, self.coarse),
                 args_windows=(out_win, coarse_win),
-                tensor_id=f"step_latent_map_{i}", **kw)
+                tensor_id=f"step_latent_map_{i}", f_fused=step_fused, **kw)
         return tensor
 
     # ==================================================================
@@ -643,7 +732,7 @@ class WorldPipeline:
         # draws from a separate offset family, as the JAX package does.
         dec_off = 15819 if self.noise_mode == "threefry" else 5819
 
-        def f(ctxs, latents_regions):
+        def core(ctxs, latents_regions):
             B = len(ctxs)
             lat = (latents_regions[:, :-1] / latents_regions[:, -1:])[:, :4]
             up = upsample_nearest(lat, lc)  # (B, 4, TILE, TILE)
@@ -660,14 +749,23 @@ class WorldPipeline:
             sample = sample / SD
             return torch.cat([sample * wwin, wwin.expand(B, 1, TILE, TILE)], dim=1)
 
+        def fused(ctxs, out_atlas, out_slots, arg_views):
+            regions = assemble_from_atlas(*arg_views[0], (6, TILE // lc, TILE // lc))
+            _write_rows(out_atlas, out_slots, core(ctxs, regions))
+
+        def f_fused(ctxs, out_atlas, out_slots, arg_views):
+            self._timed("decoder", lambda: fused(ctxs, out_atlas, out_slots, arg_views))
+
         return InfiniteTensor(
-            lambda ctxs, regions: self._timed("decoder", lambda: f(ctxs, regions)),
+            lambda ctxs, regions: self._timed("decoder", lambda: core(ctxs, regions)),
             TensorWindow((2, TILE, TILE), (2, STRIDE, STRIDE)),
             args=(self.latents,),
             args_windows=(TensorWindow((6, TILE // lc, TILE // lc),
                                        (6, STRIDE // lc, STRIDE // lc)),),
             batch_buckets=self._mesh_buckets((1, 2, 4, 8, 16)), tile_store=self.tile_store,
-            tensor_id="init_residual_map", device=self.device, shape=(2, None, None))
+            tensor_id="init_residual_map", device=self.device, shape=(2, None, None),
+            device_cache_tiles=96, defer_host=self._defer_host,
+            f_fused=f_fused if self.mesh is None else None)
 
     # ==================================================================
     # Output composition
@@ -689,46 +787,149 @@ class WorldPipeline:
 
     @staticmethod
     def _climate_ranges(i1, j1, i2, j2, scale: int):
-        """Coarse read region for a climate query."""
+        """Coarse read region for a climate query; its size depends only on
+        the query size."""
         S = 32 * scale
+        ci1, cj1 = i1 // S, j1 // S
+        ci2 = ci1 + _ceil_div(i2 - i1 + S - 1, S)
+        cj2 = cj1 + _ceil_div(j2 - j1 + S - 1, S)
         pad = (15 - 1) // 2 + 1
-        return [(0, 7), (i1 // S - pad, _ceil_div(i2, S) + pad),
-                (j1 // S - pad, _ceil_div(j2, S) + pad)]
+        return [(0, 7), (ci1 - pad, ci2 + pad), (cj1 - pad, cj2 + pad)]
+
+    def _elev_core(self, residual, latents, oi, oj, h: int, w: int) -> torch.Tensor:
+        """(B, h, w) elevation in meters from (B, 2, ...) residual and
+        (B, 6, ...) latent regions, each cropped at its (oi[b], oj[b]).
+
+        The Laplacian denoise and decode run one query at a time: their
+        convs and matmuls pick their kernels by batch size (on the card and
+        in oneDNN alike), so a batched call could round a query otherwise
+        than its one-query call does.  Everything else runs on the batch."""
+        residual_p = ((residual[:, 0] / residual[:, 1]) * self.kwargs["residual_std"]
+                      + self.kwargs["residual_mean"])
+        lowfreq_p = (latents[:, :-1] / latents[:, -1:])[:, 4] * LOWFREQ_STD + LOWFREQ_MEAN
+        elev_p = torch.cat([
+            laplacian_decode(*laplacian_denoise(residual_p[b:b + 1], lowfreq_p[b:b + 1],
+                                                sigma=5))
+            for b in range(residual_p.shape[0])])
+        rows = torch.as_tensor(oi, device=self.device)[:, None] + torch.arange(h, device=self.device)
+        cols = torch.as_tensor(oj, device=self.device)[:, None] + torch.arange(w, device=self.device)
+        b = torch.arange(len(rows), device=self.device)[:, None, None]
+        return signed_square(elev_p[b, rows[:, :, None], cols[:, None, :]])
+
+    def _climate_core(self, coarse, elev, di, dj, S: int) -> torch.Tensor:
+        """(B, 5, h, w) climate [temp, t_season, precip, p_cv, beta] from
+        (B, 7, ...) coarse regions and (B, h, w) elevation.  The sampling
+        grid is built on the device from di = i1 - ci1 * S and dj (small
+        integers, so float32 holds them exactly at any world coordinate)."""
+        win = 15
+        B, h, w = elev.shape
+        coarse_map = coarse[:, :-1] / coarse[:, -1:]
+        coarse_elev = (torch.sign(coarse_map[:, 0])
+                       * torch.square(torch.clamp(coarse_map[:, 0], min=0.0)))
+        temp_baseline, beta = local_baseline_temperature(
+            coarse_map[:, 2], coarse_elev, win=win, fallback_threshold=0.02)
+        central = coarse_map[:, :, win // 2:-(win // 2), win // 2:-(win // 2)]
+        H_src, W_src = temp_baseline.shape[-2:]
+        f32 = dict(device=self.device, dtype=torch.float32)
+        ii = (torch.as_tensor(di, **f32)[:, None] + torch.arange(h, **f32))[:, :, None]
+        jj = (torch.as_tensor(dj, **f32)[:, None] + torch.arange(w, **f32))[:, None, :]
+        u = ((ii + 0.5) / S + 0.5).expand(B, h, w)
+        v = ((jj + 0.5) / S + 0.5).expand(B, h, w)
+        grid = torch.stack([(v + 0.5) * 2 / W_src - 1, (u + 0.5) * 2 / H_src - 1], dim=-1)
+        features = torch.cat([temp_baseline[:, None], beta[:, None], central], dim=1)
+        feats_up = grid_sample_bilinear(features, grid)
+        temp_realistic = feats_up[:, 0] + feats_up[:, 1] * torch.clamp(elev, min=0.0)
+        return torch.stack([temp_realistic, feats_up[:, 5], feats_up[:, 6], feats_up[:, 7],
+                            feats_up[:, 1]], dim=1)
 
     def _compute_elev(self, i1, j1, i2, j2, scale: int) -> torch.Tensor:
-        """Elevation in meters for [i1:i2) x [j1:j2)."""
+        """Elevation in meters for [i1:i2) x [j1:j2), the regions read
+        through ``read_device``."""
         res_ranges, lat_ranges, pi1, pj1 = self._elev_ranges(i1, j1, i2, j2, scale)
-        residual = self.residual.read(res_ranges)
-        latents = self.latents.read(lat_ranges)
-        residual_p = (residual[0] / residual[1]) * self.kwargs["residual_std"] \
-            + self.kwargs["residual_mean"]
-        lowfreq_p = (latents[:-1] / latents[-1:])[4] * LOWFREQ_STD + LOWFREQ_MEAN
-        r, lo = laplacian_denoise(residual_p[None], lowfreq_p[None], sigma=5)
-        elev_p = laplacian_decode(r, lo)[0]
-        oi, oj = i1 - pi1, j1 - pj1
-        return signed_square(elev_p[oi:oi + i2 - i1, oj:oj + j2 - j1])
+        residual = self.residual.read_device(res_ranges)
+        latents = self.latents.read_device(lat_ranges)
+        return self._elev_core(residual[None], latents[None], [i1 - pi1], [j1 - pj1],
+                               i2 - i1, j2 - j1)[0]
 
     def _compute_climate(self, i1, j1, i2, j2, elev: torch.Tensor, scale: int) -> torch.Tensor:
         """(5, H, W) climate [temp, t_season, precip, p_cv, beta]."""
         S = 32 * scale
-        win = 15
-        ci1, cj1 = i1 // S, j1 // S
-        coarse = self.coarse.read(self._climate_ranges(i1, j1, i2, j2, scale))
-        ii, jj = np.meshgrid(np.arange(i1, i2), np.arange(j1, j2), indexing="ij")
-        u = self._tensor((ii + 0.5) / S - ci1 + 0.5)
-        v = self._tensor((jj + 0.5) / S - cj1 + 0.5)
-        coarse_map = coarse[:-1] / coarse[-1:]
-        coarse_elev = torch.sign(coarse_map[0]) * torch.square(torch.clamp(coarse_map[0], min=0.0))
-        temp_baseline, beta = local_baseline_temperature(
-            coarse_map[2], coarse_elev, win=win, fallback_threshold=0.02)
-        central = coarse_map[:, win // 2:-(win // 2), win // 2:-(win // 2)]
-        H_src, W_src = temp_baseline.shape
-        grid = torch.stack([(v + 0.5) * 2 / W_src - 1, (u + 0.5) * 2 / H_src - 1], dim=-1)
-        features = torch.cat([temp_baseline[None], beta[None], central], dim=0)
-        feats_up = grid_sample_bilinear(features, grid)
-        temp_realistic = feats_up[0] + feats_up[1] * torch.clamp(elev, min=0.0)
-        return torch.stack([temp_realistic, feats_up[5], feats_up[6], feats_up[7],
-                            feats_up[1]])
+        coarse = self.coarse.read_device(self._climate_ranges(i1, j1, i2, j2, scale))
+        return self._climate_core(coarse[None], elev[None], [i1 - (i1 // S) * S],
+                                  [j1 - (j1 // S) * S], S)[0]
+
+    def _compose_query_plan(self, i1, j1, i2, j2, with_climate: bool):
+        """(tensors with their read ranges, (oi, oj, di, dj), region shapes,
+        S) of one query's fused compose."""
+        scale = self.latent_compression
+        res_ranges, lat_ranges, pi1, pj1 = self._elev_ranges(i1, j1, i2, j2, scale)
+        S = 32 * scale
+        needed = [(self.residual, res_ranges), (self.latents, lat_ranges)]
+        if with_climate:
+            needed.append((self.coarse, self._climate_ranges(i1, j1, i2, j2, scale)))
+        shapes = tuple(tuple(b - a for a, b in r) for _, r in needed)
+        scalars = (i1 - pi1, j1 - pj1, i1 - (i1 // S) * S, j1 - (j1 // S) * S)
+        return needed, scalars, shapes, S
+
+    def _compose_fused_core(self, views, scalars: np.ndarray, shapes, h: int, w: int, S: int,
+                            with_climate: bool, pack_wire: bool = False):
+        """The whole output composition of B queries in one call: the
+        residual, latent [and coarse] regions assembled from the stage
+        caches (``views``: (atlas, slots, offs, valid) per tensor), the
+        Laplacian denoise and decode with the signed square, the windowed
+        temperature regression and the grid-sample, and with ``pack_wire``
+        the wire types.  Returns (elev (B, h, w), climate (B, 5, h, w) or
+        None) on the device."""
+        oi, oj, di, dj = (scalars[:, k] for k in range(4))
+        residual = assemble_from_atlas(*views[0], shapes[0])
+        latents = assemble_from_atlas(*views[1], shapes[1])
+        elev = self._elev_core(residual, latents, oi, oj, h, w)
+        climate = None
+        if with_climate:
+            coarse = assemble_from_atlas(*views[2], shapes[2])
+            climate = self._climate_core(coarse, elev, di, dj, S)
+        if pack_wire:
+            return _pack_elev_i16(elev), (climate.half() if climate is not None else None)
+        return elev, climate
+
+    def _compose_fused_batch(self, queries, with_climate: bool, pack_wire: bool = False,
+                             plans=None):
+        """Compose all `queries` (one output size and one region shape each)
+        in one call; (elev (B, ...), climate (B, ...) or None) on the
+        device, or None when their geometries differ or a window is not in
+        its stage's device cache (the caller composes them staged).  JAX
+        pads the batch to a power of two so that recurring rows hit a
+        bounded set of compiled programs; eager PyTorch compiles none."""
+        (i1, j1, i2, j2) = queries[0]
+        h, w = i2 - i1, j2 - j1
+        if any((b2 - b1, c2 - c1) != (h, w) for (b1, c1, b2, c2) in queries):
+            return None
+        if plans is None:
+            plans = [self._compose_query_plan(*q, with_climate) for q in queries]
+        needed0, _, shapes0, S = plans[0]
+        if any(p[2] != shapes0 for p in plans):
+            return None
+        views = []
+        for t_i, (tensor, _) in enumerate(needed0):
+            if tensor.device_cache is None:
+                return None
+            boxes = [tuple(map(tuple, p[0][t_i][1])) for p in plans]
+            geo = _traced_geometry(tensor.output_window, boxes, tensor.device_cache.slot)
+            if geo is None:
+                return None
+            views.append((tensor.device_cache._atlas, *geo[:3]))
+        scalars = np.asarray([p[1] for p in plans], np.int64)
+        return self._compose_fused_core(views, scalars, shapes0, h, w, S, with_climate,
+                                        pack_wire)
+
+    def _compose_fused(self, i1, j1, i2, j2, with_climate: bool, pack_wire: bool = False):
+        """(elev, climate or None) of one query in one call, or None when a
+        window it reads is not in its stage's device cache."""
+        out = self._compose_fused_batch([(i1, j1, i2, j2)], with_climate, pack_wire)
+        if out is None:
+            return None
+        elev, climate = out
+        return elev[0], (climate[0] if climate is not None else None)
 
     def prefetch(self, queries, with_climate: bool = True) -> None:
         """Plan and generate every stage window the `queries` ((i1, j1, i2,
@@ -752,28 +953,82 @@ class WorldPipeline:
         """Terrain for a bounding box: elev (H, W) meters [+ climate (5, H, W)].
 
         pack_wire=True packs the serving wire formats on the device before the
-        fetch: elevation floor + clip to int16, climate to float16."""
+        fetch: elevation floor + clip to int16, climate to float16.  Every
+        window is made resident, then composed in one call from the stage
+        caches, or staged where a window is not in them."""
         with torch.no_grad():
             self._timed("prefetch", lambda: self.prefetch([(i1, j1, i2, j2)], with_climate))
-            return self._compose(i1, j1, i2, j2, with_climate, pack_wire)
+            fused = self._timed("compose", lambda: self._compose_fused(
+                i1, j1, i2, j2, with_climate, pack_wire))
+            if fused is None:
+                return self._compose(i1, j1, i2, j2, with_climate, pack_wire)
+            elev, climate = fused
+            return self._timed("fetch", lambda: {
+                "elev": elev.cpu().numpy(),
+                "climate": climate.cpu().numpy() if climate is not None else None})
+
+    def _compose_grouped(self, queries, with_climate: bool, pack_wire: bool = False):
+        """Group `queries` by geometry (output size and region shapes) and
+        compose each group in one call.  Returns (pending, fallback):
+        pending [(query indices, (elev, climate or None))] still on the
+        device, fallback the indices of queries whose windows are not all in
+        the device caches (composed through get)."""
+        groups: dict = {}
+        plans = []
+        for qi, q in enumerate(queries):
+            plan = self._compose_query_plan(*q, with_climate)
+            plans.append(plan)
+            (i1, j1, i2, j2) = q
+            groups.setdefault((i2 - i1, j2 - j1, plan[2], plan[3]), []).append(qi)
+        pending, fallback = [], []
+        for idxs in groups.values():
+            out = self._timed("compose", lambda idxs=idxs: self._compose_fused_batch(
+                [queries[i] for i in idxs], with_climate, pack_wire,
+                plans=[plans[i] for i in idxs]))
+            if out is None:
+                fallback.extend(idxs)
+            else:
+                pending.append((idxs, out))
+        return pending, fallback
 
     def get_many(self, queries, with_climate: bool = True,
                  pack_wire: bool = False) -> list:
         """Batched get(): one generation pass over all `queries` ((i1, j1,
-        i2, j2) boxes), so their missing windows share stage batches, then
-        each query composed as get() composes it."""
+        i2, j2) boxes), so their missing windows share stage batches; then
+        each geometry group composed in one call, every group's copy to the
+        host started before the first is waited for.  Each result's bytes
+        are those get() returns."""
         with torch.no_grad():
             self._timed("prefetch", lambda: self.prefetch(queries, with_climate))
-            return [self._compose(*q, with_climate, pack_wire) for q in queries]
+            pending, fallback = self._compose_grouped(queries, with_climate, pack_wire)
+            copies = [(idxs, _host_copy(elev), _host_copy(climate))
+                      for idxs, (elev, climate) in pending]
+            results = [None] * len(queries)
+            for qi in fallback:
+                results[qi] = self.get(*queries[qi], with_climate=with_climate,
+                                       pack_wire=pack_wire)
+            for idxs, (elev, e_ev), (climate, c_ev) in copies:
+                def fetch():
+                    for ev in (e_ev, c_ev):
+                        if ev is not None:
+                            ev.synchronize()
+                    return elev.numpy(), climate.numpy() if climate is not None else None
+
+                elev_b, climate_b = self._timed("fetch", fetch)
+                for b, qi in enumerate(idxs):
+                    results[qi] = {"elev": elev_b[b],
+                                   "climate": climate_b[b] if climate_b is not None else None}
+            return results
 
     def _compose(self, i1, j1, i2, j2, with_climate: bool, pack_wire: bool) -> dict:
+        """The staged compose: elevation, then climate, each its own call."""
         scale = self.latent_compression
         elev = self._timed("compose_elev", lambda: self._compute_elev(
             i1, j1, i2, j2, scale))
         climate = (self._timed("compose_climate", lambda: self._compute_climate(
             i1, j1, i2, j2, elev, scale)) if with_climate else None)
         if pack_wire:
-            elev = torch.clamp(torch.floor(elev), -32768, 32767).to(torch.int16)
+            elev = _pack_elev_i16(elev)
             climate = climate.half() if climate is not None else None
         return self._timed("fetch", lambda: {
             "elev": elev.cpu().numpy(),
@@ -793,9 +1048,14 @@ class WorldPipeline:
         return {"warmup_s": round(time.perf_counter() - t0, 2)}
 
     def empty_cache(self):
-        """Drop every cached window output; the next query recomputes."""
-        if self.tile_store is not None:
-            self.tile_store.clear()
+        """Drop every cached window output, in the store and the stage
+        tensors' device caches; the next query recomputes."""
+        if self.tile_store is None:
+            return
+        for t in (self.coarse, self.latents, self.residual):
+            if t is not None:
+                t.clear_cache()
+        self.tile_store.clear()
 
     def close(self):
         """Close the tile store (a temporary world file is removed) and drop

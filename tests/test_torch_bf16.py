@@ -312,14 +312,16 @@ def _pooled(world):
 def test_pipeline_bf16_matches_jax(lively_models, noise_mode):
     """Elevation and climate of a bf16 world against the JAX package's bf16
     and float32 worlds, over the three query boxes pooled.  Measured with
-    these inputs on the CPU, relative RMSE (portable / threefry): elevation port-bf16 vs
-    JAX-bf16 0.0146 / 0.0081; vs JAX-f32 port-bf16 0.0059 / 0.0061,
-    JAX-bf16 0.0157 / 0.0045; climate port-bf16 vs JAX-bf16 0.0139 /
-    0.0064; vs JAX-f32 port-bf16 0.0036 / 0.0145, JAX-bf16 0.0156 / 0.0154.
-    Single boxes vary more (elevation port-bf16 vs JAX-bf16 0.0029 to
-    0.0242 over the three boxes and both noise modes), and the JAX package's
-    bf16 is itself further from float32 than the port's on most of them:
-    its XLA path evaluates bf16 sigmoids with more rounding."""
+    these inputs on the CPU, relative RMSE (portable / threefry): elevation
+    port-bf16 vs JAX-bf16 0.0077 / 0.0052; vs JAX-f32 port-bf16 0.0124 /
+    0.0085, JAX-bf16 0.0173 / 0.0045; climate port-bf16 vs JAX-bf16 0.0086
+    / 0.0069; vs JAX-f32 port-bf16 0.0185 / 0.0101, JAX-bf16 0.0166 /
+    0.0154, the same with oneDNN on and off: the port's 16-bit CPU convs and
+    matmuls sum in float64 and round once (``ops/nhwc.py``), so no CPU
+    instruction set changes a bit, and its MP ops apply their Python
+    constants rounded to the type, as the JAX package's weakly typed
+    scalars are.  The two packages' bf16 errors are otherwise independent
+    (XLA's fusions drop some roundings), so single boxes vary more."""
     kw = dict(KW, noise_mode=noise_mode)
     port = WorldPipeline(device="cpu", dtype="bf16", **kw).set_models(
         *_port_models(lively_models)).bind()
