@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from terrain_diffusion_tpu_torch import use_full_f32
+from terrain_diffusion_tpu_torch.common.spans import StageClock, span
 from terrain_diffusion_tpu_torch.nn import torch_compat
 from terrain_diffusion_tpu_torch.nn.layers import BLOCK_IMPLS, with_block_impl
 from terrain_diffusion_tpu_torch.ops import mp
@@ -79,7 +80,8 @@ from terrain_diffusion_tpu_torch.pipeline.synthetic_map import make_synthetic_ma
 from terrain_diffusion_tpu_torch.runtime.infinite_tensor import (InfiniteTensor,
                                                                  _traced_geometry,
                                                                  assemble_from_atlas,
-                                                                 ensure_regions_multi)
+                                                                 ensure_regions_multi,
+                                                                 new_counts)
 from terrain_diffusion_tpu_torch.runtime.tile_store import HDF5TileStore, MemoryTileStore
 from terrain_diffusion_tpu_torch.runtime.window import TensorWindow
 from terrain_diffusion_tpu_torch.scheduler.dpmsolver import (EDMSchedulerConfig,
@@ -222,6 +224,9 @@ class WorldPipeline:
         self.custom_conditioning_import_origins = {}
         self.custom_conditioning_default_values = {}
         self.stage_timings = {}
+        self._clock = StageClock(self.stage_timings, self.device)
+        self._counts = {}    # stage -> its stage tensor's counters (runtime/infinite_tensor.py)
+        self._stage_of = {}  # id(model) -> the stage model's name in forward ranges
 
     # ==================================================================
     # Model IO
@@ -271,6 +276,8 @@ class WorldPipeline:
         self.coarse_model, self.base_model, self.decoder_model = (
             with_block_impl(m.to(self.device).eval(), self.block_impl)
             for m in (coarse, base, decoder))
+        self._stage_of = {id(self.coarse_model): "coarse", id(self.base_model): "base",
+                          id(self.decoder_model): "decoder"}
         self._replicas = {}
         if self.tile_store is not None:
             self._build_hierarchy()  # window fns must see the new models
@@ -437,23 +444,34 @@ class WorldPipeline:
     # Observability
     # ==================================================================
     def _timed(self, stage: str, fn):
-        """Run fn, adding its wall time to `stage_timings`; on the card the
-        stage's device work is waited for, so the time is the stage's own."""
-        t0 = time.perf_counter()
-        out = fn()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        agg = self.stage_timings.setdefault(stage, [0, 0.0])
-        agg[0] += 1
-        agg[1] += dt
-        if self.log_mode == "verbose":
-            print(f"[{stage}] {dt * 1000:.1f} ms")
-        return out
+        """Run fn as one call of `stage` in `stage_timings` ([calls,
+        seconds]), under a ``td.<stage>`` profiler range.  The call counts at
+        once.  On the CPU the seconds are its wall time; on a card they are
+        the stage's span on the device, from its first queued work to its
+        last (``common/spans.py::StageClock``), taken from CUDA events
+        without waiting for the device, and added by the end of the
+        ``get`` or ``get_many`` that ran the stage."""
+        return self._clock.timed(stage, fn, self.log_mode == "verbose")
+
+    def _settle_timings(self):
+        self._clock.settle(self.log_mode == "verbose")
 
     def timing_summary(self) -> dict:
+        self._settle_timings()
         return {k: {"calls": v[0], "total_s": v[1], "mean_ms": v[1] / max(v[0], 1) * 1000}
                 for k, v in self.stage_timings.items()}
+
+    def counters(self) -> dict:
+        """{stage: {windows, padded, lookups, hits}} since the world was made
+        (a rebuild keeps them): per stage tensor (``coarse``,
+        ``latent_init``, ``latent_step``, or ``latent_t1`` at T=1,
+        ``decoder``), the windows its stage computed, the rows that bucket
+        padding added to them, and the windows that planning looked up and
+        found resident."""
+        return {k: dict(v) for k, v in self._counts.items()}
+
+    def _stage_counts(self, stage: str) -> dict:
+        return self._counts.setdefault(stage, new_counts())
 
     @contextlib.contextmanager
     def profile(self, log_dir: str):
@@ -481,14 +499,16 @@ class WorldPipeline:
         """``model(x, noise_labels, cond)`` on the world's device; with a mesh,
         each slot's replica takes its chunk of the batch (a padded bucket, a
         multiple of the slots; all chunks are launched before any is
-        gathered) and the outputs are joined in order."""
-        if self.mesh is None:
-            return model(x, noise_labels, cond)
-        if id(model) not in self._replicas:  # set_models and rebuild drop them
-            self._replicas[id(model)] = replicate(self.mesh, model)
-        outs = [rep(*shard) for rep, shard in zip(
-            self._replicas[id(model)], shard_batch(self.mesh, (x, noise_labels, cond)))]
-        return torch.cat([o.to(self.device) for o in outs])
+        gathered) and the outputs are joined in order.  Runs under a
+        ``td.fwd.<model>.<batch>.<h>.<w>`` profiler range."""
+        with span("fwd", self._stage_of.get(id(model), "model"), *x.shape[:3]):
+            if self.mesh is None:
+                return model(x, noise_labels, cond)
+            if id(model) not in self._replicas:  # set_models and rebuild drop them
+                self._replicas[id(model)] = replicate(self.mesh, model)
+            outs = [rep(*shard) for rep, shard in zip(
+                self._replicas[id(model)], shard_batch(self.mesh, (x, noise_labels, cond)))]
+            return torch.cat([o.to(self.device) for o in outs])
 
     # ==================================================================
     # Helpers
@@ -582,7 +602,8 @@ class WorldPipeline:
             batch_buckets=buckets, tile_store=self.tile_store,
             tensor_id="base_coarse_map", device=self.device, shape=(7, None, None),
             device_cache_tiles=256, defer_host=self._defer_host,
-            f_fused=f_fused if self.mesh is None else None)
+            f_fused=f_fused if self.mesh is None else None,
+            counts=self._stage_counts("coarse"))
 
     # ==================================================================
     # Latent stage
@@ -701,16 +722,19 @@ class WorldPipeline:
 
             return InfiniteTensor(f_t1, out_win, args=(self.coarse,),
                                   args_windows=(coarse_win,), tensor_id="latent_map_T1",
-                                  f_fused=self._latent_t1_fused(t_init, t_inter), **kw)
+                                  f_fused=self._latent_t1_fused(t_init, t_inter),
+                                  counts=self._stage_counts("latent_t1"), **kw)
         tensor = InfiniteTensor(init_f, out_win, args=(self.coarse,),
                                 args_windows=(coarse_win,), tensor_id="init_latent_map",
-                                f_fused=init_fused, **kw)
+                                f_fused=init_fused, counts=self._stage_counts("latent_init"),
+                                **kw)
         for i, t in enumerate(t_inter):
             step_f, step_fused = self._latent_program(t, 5820 + i, with_prev=True)
             tensor = InfiniteTensor(
                 step_f, out_win, args=(tensor, self.coarse),
                 args_windows=(out_win, coarse_win),
-                tensor_id=f"step_latent_map_{i}", f_fused=step_fused, **kw)
+                tensor_id=f"step_latent_map_{i}", f_fused=step_fused,
+                counts=self._stage_counts("latent_step"), **kw)
         return tensor
 
     # ==================================================================
@@ -765,7 +789,8 @@ class WorldPipeline:
             batch_buckets=self._mesh_buckets((1, 2, 4, 8, 16)), tile_store=self.tile_store,
             tensor_id="init_residual_map", device=self.device, shape=(2, None, None),
             device_cache_tiles=96, defer_host=self._defer_host,
-            f_fused=f_fused if self.mesh is None else None)
+            f_fused=f_fused if self.mesh is None else None,
+            counts=self._stage_counts("decoder"))
 
     # ==================================================================
     # Output composition
@@ -956,16 +981,20 @@ class WorldPipeline:
         fetch: elevation floor + clip to int16, climate to float16.  Every
         window is made resident, then composed in one call from the stage
         caches, or staged where a window is not in them."""
-        with torch.no_grad():
+        with torch.no_grad(), span("get"):
             self._timed("prefetch", lambda: self.prefetch([(i1, j1, i2, j2)], with_climate))
             fused = self._timed("compose", lambda: self._compose_fused(
                 i1, j1, i2, j2, with_climate, pack_wire))
             if fused is None:
-                return self._compose(i1, j1, i2, j2, with_climate, pack_wire)
-            elev, climate = fused
-            return self._timed("fetch", lambda: {
-                "elev": elev.cpu().numpy(),
-                "climate": climate.cpu().numpy() if climate is not None else None})
+                out = self._compose(i1, j1, i2, j2, with_climate, pack_wire)
+            else:
+                elev, climate = fused
+                out = self._timed("fetch", lambda: {
+                    "elev": elev.cpu().numpy(),
+                    "climate": climate.cpu().numpy() if climate is not None else None})
+            with span("timings"):
+                self._settle_timings()
+            return out
 
     def _compose_grouped(self, queries, with_climate: bool, pack_wire: bool = False):
         """Group `queries` by geometry (output size and region shapes) and
@@ -975,11 +1004,12 @@ class WorldPipeline:
         the device caches (composed through get)."""
         groups: dict = {}
         plans = []
-        for qi, q in enumerate(queries):
-            plan = self._compose_query_plan(*q, with_climate)
-            plans.append(plan)
-            (i1, j1, i2, j2) = q
-            groups.setdefault((i2 - i1, j2 - j1, plan[2], plan[3]), []).append(qi)
+        with span("plan"):
+            for qi, q in enumerate(queries):
+                plan = self._compose_query_plan(*q, with_climate)
+                plans.append(plan)
+                (i1, j1, i2, j2) = q
+                groups.setdefault((i2 - i1, j2 - j1, plan[2], plan[3]), []).append(qi)
         pending, fallback = [], []
         for idxs in groups.values():
             out = self._timed("compose", lambda idxs=idxs: self._compose_fused_batch(
@@ -997,27 +1027,38 @@ class WorldPipeline:
         i2, j2) boxes), so their missing windows share stage batches; then
         each geometry group composed in one call, every group's copy to the
         host started before the first is waited for.  Each result's bytes
-        are those get() returns."""
-        with torch.no_grad():
+        are those get() returns.
+
+        Its host work runs in named profiler ranges under ``td.get_many``:
+        ``prefetch`` (with ``plan`` and the stages), ``plan`` and
+        ``compose`` of the groups, ``copy``, ``fallback``, ``fetch`` and
+        ``timings``."""
+        with torch.no_grad(), span("get_many"):
             self._timed("prefetch", lambda: self.prefetch(queries, with_climate))
             pending, fallback = self._compose_grouped(queries, with_climate, pack_wire)
-            copies = [(idxs, _host_copy(elev), _host_copy(climate))
-                      for idxs, (elev, climate) in pending]
+            with span("copy"):
+                copies = [(idxs, _host_copy(elev), _host_copy(climate))
+                          for idxs, (elev, climate) in pending]
             results = [None] * len(queries)
-            for qi in fallback:
-                results[qi] = self.get(*queries[qi], with_climate=with_climate,
-                                       pack_wire=pack_wire)
+            if fallback:
+                with span("fallback"):
+                    for qi in fallback:
+                        results[qi] = self.get(*queries[qi], with_climate=with_climate,
+                                               pack_wire=pack_wire)
             for idxs, (elev, e_ev), (climate, c_ev) in copies:
                 def fetch():
                     for ev in (e_ev, c_ev):
                         if ev is not None:
                             ev.synchronize()
-                    return elev.numpy(), climate.numpy() if climate is not None else None
+                    elev_b = elev.numpy()
+                    climate_b = climate.numpy() if climate is not None else None
+                    for b, qi in enumerate(idxs):
+                        results[qi] = {"elev": elev_b[b],
+                                       "climate": climate_b[b] if climate_b is not None else None}
 
-                elev_b, climate_b = self._timed("fetch", fetch)
-                for b, qi in enumerate(idxs):
-                    results[qi] = {"elev": elev_b[b],
-                                   "climate": climate_b[b] if climate_b is not None else None}
+                self._timed("fetch", fetch)
+            with span("timings"):
+                self._settle_timings()
             return results
 
     def _compose(self, i1, j1, i2, j2, with_climate: bool, pack_wire: bool) -> dict:

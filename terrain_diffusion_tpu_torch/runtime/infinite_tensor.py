@@ -36,6 +36,13 @@ set of batch sizes.  ``f_fused(ctxs, out_atlas, out_slots, arg_views)``
 takes the same padded ``ctxs``, one ``(atlas, slots, offs, valid)`` view
 per argument tensor (``_traced_geometry`` of the padded boxes) and writes
 its first ``len(out_slots)`` output rows into ``out_atlas[out_slots]``.
+
+Each tensor counts, in ``counts`` (which its owner may share across
+rebuilds): ``windows``, the windows its window function computed, and
+``padded``, the rows bucket padding added to those calls; ``lookups``, the
+distinct windows a planning pass looked up, and ``hits``, those of them
+already resident.  Planning runs under ``td.plan`` profiler ranges
+(``common/spans.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import collections
 import numpy as np
 import torch
 
+from terrain_diffusion_tpu_torch.common.spans import span
 from terrain_diffusion_tpu_torch.runtime.tile_store import HDF5TileStore, MemoryTileStore
 from terrain_diffusion_tpu_torch.runtime.window import TensorWindow
 
@@ -240,13 +248,19 @@ def _traced_geometry(window: TensorWindow, boxes, slot_of):
     return slots, offs, valid, K
 
 
+def new_counts() -> dict:
+    """A stage tensor's counters, all zero."""
+    return {"windows": 0, "padded": 0, "lookups": 0, "hits": 0}
+
+
 class InfiniteTensor:
     def __init__(self, f, output_window: TensorWindow, *, args: tuple = (),
                  args_windows: tuple = (), batch_buckets=(1,),
                  tile_store: MemoryTileStore | HDF5TileStore, tensor_id: str, device,
                  shape=None, device_cache_tiles: int = 0, defer_host: bool = False,
-                 f_fused=None):
+                 f_fused=None, counts: dict | None = None):
         self.f = f
+        self.counts = counts if counts is not None else new_counts()
         # per dim, its extent where it is bounded (the channel dim), else None
         self.shape = tuple(shape) if shape is not None else (None,) * len(output_window.size)
         self.output_window = output_window
@@ -334,11 +348,14 @@ class InfiniteTensor:
             return True
         return self.device_cache is not None and self.device_cache.slot(idx) is not None
 
-    def _collect_needed(self, idx_set, need, touched=None):
+    def _collect_needed(self, idx_set, need, touched):
         mine = need.setdefault(id(self), set())
-        if touched is not None:
-            touched.setdefault(id(self), set()).update(idx_set)
+        seen = touched.setdefault(id(self), set())
+        looked_up = len(idx_set - seen)  # each window once a pass
+        seen.update(idx_set)
         new = {i for i in idx_set if i not in mine and not self._contains(i)}
+        self.counts["lookups"] += looked_up
+        self.counts["hits"] += looked_up - len(new)
         if not new:
             return
         mine |= new
@@ -373,19 +390,25 @@ class InfiniteTensor:
         pad = self._pick_bucket(len(chunk)) - len(chunk)
         padded = list(chunk) + [chunk[-1]] * pad
         arg_views = []
-        for a, win in zip(self.args, self.args_windows):
-            if a.device_cache is None:
-                return False
-            geo = _traced_geometry(a.output_window, [win.box(idx) for idx in padded],
-                                   a.device_cache.slot)
-            if geo is None:
-                return False
-            slots, offs, valid, _ = geo
-            arg_views.append((a.device_cache._atlas, slots, offs, valid))
-        out_slots = self.device_cache.reserve(chunk, self.output_window.size)
+        with span("plan"):
+            for a, win in zip(self.args, self.args_windows):
+                if a.device_cache is None:
+                    return False
+                geo = _traced_geometry(a.output_window, [win.box(idx) for idx in padded],
+                                       a.device_cache.slot)
+                if geo is None:
+                    return False
+                slots, offs, valid, _ = geo
+                arg_views.append((a.device_cache._atlas, slots, offs, valid))
+            out_slots = self.device_cache.reserve(chunk, self.output_window.size)
+        self._count_rows(len(chunk), pad)
         self.f_fused(np.asarray(padded, dtype=np.int64), self.device_cache._atlas,
                      out_slots, arg_views)
         return True
+
+    def _count_rows(self, windows: int, padded: int):
+        self.counts["windows"] += windows
+        self.counts["padded"] += padded
 
     def _ensure_parent_windows(self, chunk):
         """Evaluate every missing parent window of `chunk` in batches, rather
@@ -418,6 +441,7 @@ class InfiniteTensor:
                 regions = [a._assemble(box) for box in boxes[:len(chunk)]]
                 stack = torch.stack(regions + [regions[-1]] * pad)
             stacks.append(stack)
+        self._count_rows(len(chunk), pad)
         out = self.f(ctxs, *stacks)
         want = (len(ctxs), *self.output_window.size)
         if tuple(out.shape) != want:
@@ -513,12 +537,6 @@ def ensure_regions_multi(requests):
     need: dict = {}
     touched: dict = {}
     roots = []
-    for tensor, ranges_list in requests:
-        idxs = set()
-        for ranges in ranges_list:
-            idxs |= set(tensor.output_window.windows_overlapping(ranges))
-        tensor._collect_needed(idxs, need, touched)
-        roots.append(tensor)
     order, seen = [], set()
 
     def visit(t):
@@ -529,12 +547,20 @@ def ensure_regions_multi(requests):
             visit(a)
         order.append(t)
 
-    for r in roots:
-        visit(r)
+    with span("plan"):
+        for tensor, ranges_list in requests:
+            idxs = set()
+            for ranges in ranges_list:
+                idxs |= set(tensor.output_window.windows_overlapping(ranges))
+            tensor._collect_needed(idxs, need, touched)
+            roots.append(tensor)
+        for r in roots:
+            visit(r)
     for t in order:
         tt = touched.get(id(t))
         if tt and t.device_cache is not None:
-            t.device_cache.grow_to(len(tt) + 8, tuple(t.output_window.size))
+            with span("plan"):
+                t.device_cache.grow_to(len(tt) + 8, tuple(t.output_window.size))
         n = need.get(id(t))
         if n:
             t._evaluate_windows(sorted(n))

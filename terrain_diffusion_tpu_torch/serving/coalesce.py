@@ -21,15 +21,22 @@ seed-X terrain even when another client changes the seed concurrently.
 A job may carry several boxes (``get_terrain_boxes``): they are served
 under one seed in one batch, which the Minecraft API's padded-elevation +
 climate pairs need to stay mutually consistent.
+
+The coalescer counts, cumulatively (``RequestCoalescer.counters``):
+``jobs``, the terrain jobs the worker has taken from the queue, and
+``queue_wait_s``, their summed time from submission to being taken; and of
+its generation passes (``_serve``), ``batches``, the ``queries`` (boxes)
+they served and ``busy_s``, their summed wall time.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 
 
 class _Job:
-    __slots__ = ("kind", "payload", "event", "result", "error")
+    __slots__ = ("kind", "payload", "event", "result", "error", "t_submit")
 
     def __init__(self, kind: str, payload):
         self.kind = kind
@@ -37,6 +44,7 @@ class _Job:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.t_submit = 0   # time.perf_counter_ns() when queued
 
     def finish(self, result=None, error=None):
         self.result = result
@@ -71,6 +79,9 @@ class RequestCoalescer:
         self._queue: "queue.Queue[_Job]" = queue.Queue()
         self._closed = False
         self._lifecycle = threading.Lock()  # serializes submit vs close
+        # written by the worker thread only
+        self._counts = {"jobs": 0, "queue_wait_s": 0.0, "batches": 0, "queries": 0,
+                        "busy_s": 0.0}
         self._thread = threading.Thread(
             target=self._loop, name="pipeline-coalescer", daemon=True)
         self._thread.start()
@@ -108,7 +119,13 @@ class RequestCoalescer:
         with self._lifecycle:
             if self._closed:
                 raise RuntimeError("RequestCoalescer is closed")
+            job.t_submit = time.perf_counter_ns()
             self._queue.put(job)
+
+    def counters(self) -> dict:
+        """{jobs, queue_wait_s, batches, queries, busy_s} since the
+        coalescer was made (see the module's docstring)."""
+        return dict(self._counts)
 
     def close(self, timeout: float = 60.0) -> bool:
         """Stop the worker; returns True when it actually exited.  A False
@@ -127,13 +144,12 @@ class RequestCoalescer:
     # ------------------------------------------------------------------
     def _loop(self):
         while True:
-            job = self._queue.get()
-            batch = [job]
+            batch = [self._taken(self._queue.get())]
             # Drain whatever else is already queued (no waiting): jobs that
             # arrived while the previous batch was generating coalesce now.
             while len(batch) < self.max_batch:
                 try:
-                    batch.append(self._queue.get_nowait())
+                    batch.append(self._taken(self._queue.get_nowait()))
                 except queue.Empty:
                     break
             try:
@@ -153,6 +169,12 @@ class RequestCoalescer:
                     except queue.Empty:
                         break
                 raise
+
+    def _taken(self, job):
+        if job.kind == "terrain":
+            self._counts["jobs"] += 1
+            self._counts["queue_wait_s"] += (time.perf_counter_ns() - job.t_submit) * 1e-9
+        return job
 
     def _process(self, batch) -> bool:
         """Run one drained batch; returns True when a stop job was seen
@@ -201,6 +223,15 @@ class RequestCoalescer:
         """One coalesced generation + composition pass over the jobs'
         boxes (get_many); falls back to per-job gets so one bad query cannot
         fail its batchmates."""
+        t0 = time.perf_counter()
+        try:
+            self._serve_parts(jobs)
+        finally:
+            self._counts["batches"] += 1
+            self._counts["queries"] += sum(len(j.payload[0]) for j in jobs)
+            self._counts["busy_s"] += time.perf_counter() - t0
+
+    def _serve_parts(self, jobs):
         parts: dict = {}
         for j in jobs:
             parts.setdefault((j.payload[1], j.payload[2]), []).append(j)
@@ -267,6 +298,11 @@ class CoalescedPipeline:
         """Several boxes as one atomic job (one seed, one batch)."""
         return self._coalescer.get_terrain_boxes(boxes, with_climate,
                                                  pack_wire, seed)
+
+    def coalescer_counters(self) -> dict:
+        """The coalescer's ``counters()``; the world's own are
+        ``counters()``."""
+        return self._coalescer.counters()
 
     def get_many(self, queries, with_climate: bool = True,
                  pack_wire: bool = False) -> list:
