@@ -189,10 +189,18 @@ class EDMUnet2D(nn.Module):
 
     def forward(self, x, noise_labels=None, conditional_inputs=None,
                 return_logvar: bool = False, training: bool = False,
-                generator: Optional[torch.Generator] = None, rows=None):
+                generator: Optional[torch.Generator] = None, rows=None, graphs=None):
         """x is NHWC (N, H, W, in_channels).  ``training`` with a CPU
         ``generator`` applies the blocks' dropout (for the ``rows`` of the
-        global batch that x holds, in data-parallel training)."""
+        global batch that x holds, in data-parallel training).
+
+        ``graphs``, which only ``WorldPipeline._forward`` passes, takes over
+        an inference forward: ``graphs(self, x, noise_labels,
+        conditional_inputs)`` runs it eagerly or replays its CUDA graph
+        (``runtime/cuda_graphs.py``) inside this call, so forward hooks fire
+        once per forward."""
+        if graphs is not None and not training and not return_logvar:
+            return graphs(self, x, noise_labels, conditional_inputs)
         cfg = self.config
         emb = self.compute_embeddings(noise_labels, conditional_inputs)
         if emb is not None:

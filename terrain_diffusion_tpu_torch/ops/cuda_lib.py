@@ -10,7 +10,10 @@ CPU has no nvcc.
 Each kernel wrapper is registered with ``counted``: it gets a plain integer
 ``launches`` attribute and a ``launches_by_dtype`` dict (float32 and the
 16-bit forms apart) that ``count_launch`` raises by one where the wrapper
-launches its kernel, and ``reset_launch_counts`` zeroes all of them.
+launches its kernel, and ``reset_launch_counts`` zeroes all of them.  A
+CUDA graph's replay adds the launches it captured (``launch_counts``,
+``launches_since``, ``add_launches``), so a replayed forward counts as an
+eager one does.
 
 The kernels define no backward, as the Pallas kernels define no VJP: every
 wrapper calls ``refuse_autograd`` first, on any device, so that a tensor
@@ -96,6 +99,28 @@ def reset_launch_counts():
     for fn in _COUNTED:
         fn.launches = 0
         fn.launches_by_dtype = {}
+
+
+def launch_counts() -> list:
+    """A snapshot of every counted wrapper's launches by type, in
+    registration order."""
+    return [dict(fn.launches_by_dtype) for fn in _COUNTED]
+
+
+def launches_since(before: list) -> list:
+    """The launches counted since the snapshot ``before``, in its form."""
+    return [{dt: n - then.get(dt, 0) for dt, n in fn.launches_by_dtype.items()
+             if n != then.get(dt, 0)} for fn, then in zip(_COUNTED, before)]
+
+
+def add_launches(launches: list, sign: int = 1):
+    """Count ``launches`` (``launches_since``'s form) once more, or with
+    ``sign=-1`` take them back: a CUDA graph's replay runs the launches it
+    captured, which counted when they were captured and not run."""
+    for fn, by_dtype in zip(_COUNTED, launches):
+        for dt, n in by_dtype.items():
+            fn.launches += sign * n
+            fn.launches_by_dtype[dt] = fn.launches_by_dtype.get(dt, 0) + sign * n
 
 
 # the low-level registration: its dispatch costs a few microseconds a call

@@ -53,6 +53,7 @@ opens in the other.  It needs ``h5py``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import tempfile
@@ -77,6 +78,7 @@ from terrain_diffusion_tpu_torch.ops.windows import linear_weight_window
 from terrain_diffusion_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from terrain_diffusion_tpu_torch.pipeline.postprocessing import local_baseline_temperature
 from terrain_diffusion_tpu_torch.pipeline.synthetic_map import make_synthetic_map_factory
+from terrain_diffusion_tpu_torch.runtime.cuda_graphs import ForwardGraphs
 from terrain_diffusion_tpu_torch.runtime.infinite_tensor import (InfiniteTensor,
                                                                  _traced_geometry,
                                                                  assemble_from_atlas,
@@ -198,6 +200,7 @@ class WorldPipeline:
         self.block_impl = block_impl
         self.mesh = mesh
         self._replicas = {}  # id(model) -> the model's replica on each mesh slot
+        self._graphs = ForwardGraphs()  # the stage forwards' CUDA graphs (_forward)
         self.compute_dtype = COMPUTE_DTYPES[dtype]
         self.device = torch.device(device)
         self.kwargs = {
@@ -279,6 +282,7 @@ class WorldPipeline:
         self._stage_of = {id(self.coarse_model): "coarse", id(self.base_model): "base",
                           id(self.decoder_model): "decoder"}
         self._replicas = {}
+        self._graphs.clear()  # graphs and replicas hold the old weights
         if self.tile_store is not None:
             self._build_hierarchy()  # window fns must see the new models
         return self
@@ -357,6 +361,7 @@ class WorldPipeline:
             store.set_params({"seed": self.seed, "kwargs": self.kwargs})
             self.tile_store = store
         self._replicas = {}
+        self._graphs.clear()
         self._init_conditioning()
         self._build_hierarchy()
 
@@ -462,12 +467,13 @@ class WorldPipeline:
                 for k, v in self.stage_timings.items()}
 
     def counters(self) -> dict:
-        """{stage: {windows, padded, lookups, hits}} since the world was made
-        (a rebuild keeps them): per stage tensor (``coarse``,
-        ``latent_init``, ``latent_step``, or ``latent_t1`` at T=1,
-        ``decoder``), the windows its stage computed, the rows that bucket
-        padding added to them, and the windows that planning looked up and
-        found resident."""
+        """{stage: {windows, padded, lookups, hits, forwards, captures,
+        replays}} since the world was made (a rebuild keeps them): per stage
+        tensor (``coarse``, ``latent_init``, ``latent_step``, or
+        ``latent_t1`` at T=1, ``decoder``), the windows its stage computed,
+        the rows that bucket padding added to them, the windows that
+        planning looked up and found resident, its model forwards, and the
+        CUDA graphs of them captured and replayed (``_forward``)."""
         return {k: dict(v) for k, v in self._counts.items()}
 
     def _stage_counts(self, stage: str) -> dict:
@@ -495,14 +501,22 @@ class WorldPipeline:
             return tuple(buckets)
         return tuple(sorted({max(b, 1) * n for b in buckets}))
 
-    def _forward(self, model, x, noise_labels, cond):
-        """``model(x, noise_labels, cond)`` on the world's device; with a mesh,
-        each slot's replica takes its chunk of the batch (a padded bucket, a
-        multiple of the slots; all chunks are launched before any is
-        gathered) and the outputs are joined in order.  Runs under a
+    def _forward(self, model, x, noise_labels, cond, counts: dict):
+        """``model(x, noise_labels, cond)`` on the world's device, counted in
+        the stage's ``counts``.  On a card, without autograd, it runs
+        through the world's CUDA graphs (``runtime/cuda_graphs.py``): the
+        first forward of a model and input signature eagerly, every later
+        one as a replay of its graph.  With a mesh, each slot's replica
+        takes its chunk of the batch (a padded bucket, a multiple of the
+        slots; all chunks are launched before any is gathered), eagerly,
+        and the outputs are joined in order.  Runs under a
         ``td.fwd.<model>.<batch>.<h>.<w>`` profiler range."""
+        counts["forwards"] += 1
         with span("fwd", self._stage_of.get(id(model), "model"), *x.shape[:3]):
             if self.mesh is None:
+                if x.is_cuda and not torch.is_grad_enabled():
+                    return model(x, noise_labels, cond, graphs=functools.partial(
+                        self._graphs, counts=counts))
                 return model(x, noise_labels, cond)
             if id(model) not in self._replicas:  # set_models and rebuild drop them
                 self._replicas[id(model)] = replicate(self.mesh, model)
@@ -558,6 +572,9 @@ class WorldPipeline:
                               self.kwargs["p5_coarse_pool_mode"])]
         model = self.coarse_model
         dt = self.compute_dtype
+        counts = self._stage_counts("coarse")
+        buckets = self._mesh_buckets((1, 2, 4, 8, 16, 32))
+        self._graphs.reserve(model, buckets[-1])
 
         def core(ctxs):
             seed = self.seed
@@ -579,7 +596,7 @@ class WorldPipeline:
                 x_in = torch.cat([scaled, cond_img], dim=1).permute(0, 2, 3, 1).to(dt)
                 out = self._forward(model, x_in,
                                     torch.full((B,), label, device=self.device, dtype=dt),
-                                    cond_scalars)
+                                    cond_scalars, counts)
                 return out.permute(0, 3, 1, 2).float()
 
             sample = sample_dpm(model_fn, x, SCHED, 20) / SD
@@ -595,7 +612,6 @@ class WorldPipeline:
         def f_fused(ctxs, out_atlas, out_slots, arg_views):
             self._timed("coarse", lambda: _write_rows(out_atlas, out_slots, core(ctxs)))
 
-        buckets = self._mesh_buckets((1, 2, 4, 8, 16, 32))
         return InfiniteTensor(
             lambda ctxs: self._timed("coarse", lambda: core(ctxs)),
             TensorWindow((7, TILE // pool, TILE // pool), (7, STRIDE // pool, STRIDE // pool)),
@@ -603,7 +619,7 @@ class WorldPipeline:
             tensor_id="base_coarse_map", device=self.device, shape=(7, None, None),
             device_cache_tiles=256, defer_host=self._defer_host,
             f_fused=f_fused if self.mesh is None else None,
-            counts=self._stage_counts("coarse"))
+            counts=counts)
 
     # ==================================================================
     # Latent stage
@@ -626,11 +642,12 @@ class WorldPipeline:
              cond[:, 2:6, 1:3, 1:3].mean(dim=(2, 3)), cond[:, 6].reshape(B, -1),
              hist, noise_level], dim=1)
 
-    def _latent_core(self, t_value: float, seed_offset: int, with_prev: bool):
+    def _latent_core(self, t_value: float, seed_offset: int, with_prev: bool, counts: dict):
         """One TrigFlow consistency step on a batch of latent tiles:
         ``core(ctxs, coarses, prevs)`` with the (B, 7, 4, 4) coarse windows
         and, with ``with_prev``, the (B, 6, 64, 64) previous phase's regions;
-        shared by the staged and the fused calls and the T=1 chain."""
+        shared by the staged and the fused calls and the T=1 chain.  Its
+        forwards count in ``counts``, its stage tensor's."""
         TILE, STRIDE = 64, 32
         model = self.base_model
         dt = self.compute_dtype
@@ -646,19 +663,22 @@ class WorldPipeline:
             x_t = torch.cos(t) * prev + torch.sin(t) * (z * SD)
             x_in = (x_t / SD).permute(0, 2, 3, 1).to(dt)
             pred = -self._forward(model, x_in, t.expand(B).to(dt),
-                                  [self._build_cond(coarses).to(dt)])
+                                  [self._build_cond(coarses).to(dt)], counts)
             pred = pred.permute(0, 3, 1, 2).float()
             sample = (torch.cos(t) * x_t - torch.sin(t) * SD * pred) / SD
             return torch.cat([sample * wwin, wwin.expand(B, 1, TILE, TILE)], dim=1)
 
         return core
 
-    def _latent_program(self, t_value: float, seed_offset: int, with_prev: bool):
+    def _latent_program(self, t_value: float, seed_offset: int, with_prev: bool,
+                        counts: dict | None = None):
         """(f, f_fused) of one latent phase tensor; its parents are the
-        previous phase (with ``with_prev``) and the coarse map."""
+        previous phase (with ``with_prev``) and the coarse map.  Its
+        forwards count in ``counts``, by default its own stage's."""
         TILE = 64
-        core = self._latent_core(t_value, seed_offset, with_prev)
         stage = "latent_step" if with_prev else "latent_init"
+        core = self._latent_core(t_value, seed_offset, with_prev,
+                                 counts if counts is not None else self._stage_counts(stage))
 
         def f(ctxs, *regions):
             prevs, coarses = regions if with_prev else (None, regions[0])
@@ -682,8 +702,9 @@ class WorldPipeline:
         as one ``latent_t1`` call."""
         if self.mesh is not None:
             return None
-        cores = [self._latent_core(t_init, 5819, with_prev=False)] + [
-            self._latent_core(t, 5820 + i, with_prev=True) for i, t in enumerate(steps)]
+        counts = self._stage_counts("latent_t1")
+        cores = [self._latent_core(t_init, 5819, False, counts)] + [
+            self._latent_core(t, 5820 + i, True, counts) for i, t in enumerate(steps)]
 
         def fused(ctxs, out_atlas, out_slots, arg_views):
             coarses = assemble_from_atlas(*arg_views[0], (7, 4, 4))
@@ -704,12 +725,14 @@ class WorldPipeline:
         t_inter = [] if self.onestep_latent else [float(np.arctan(0.35 / 0.5))]
         out_win = TensorWindow((6, TILE, TILE), (6, STRIDE, STRIDE))
         coarse_win = TensorWindow((7, 4, 4), (7, 1, 1), offset=(0, -1, -1))
-        kw = dict(batch_buckets=self._mesh_buckets(self._batch_sizes),
-                  tile_store=self.tile_store, device=self.device, shape=(6, None, None),
-                  device_cache_tiles=256, defer_host=self._defer_host)
-        init_f, init_fused = self._latent_program(t_init, 5819, with_prev=False)
+        buckets = self._mesh_buckets(self._batch_sizes)
+        self._graphs.reserve(self.base_model, buckets[-1])
+        kw = dict(batch_buckets=buckets, tile_store=self.tile_store, device=self.device,
+                  shape=(6, None, None), device_cache_tiles=256, defer_host=self._defer_host)
         if self.T == 1:
-            step_fs = [self._latent_program(t, 5820 + i, with_prev=True)[0]
+            t1_counts = self._stage_counts("latent_t1")
+            init_f = self._latent_program(t_init, 5819, False, t1_counts)[0]
+            step_fs = [self._latent_program(t, 5820 + i, True, t1_counts)[0]
                        for i, t in enumerate(t_inter)]
 
             # init and steps chained inside one window fn: the intermediate
@@ -723,7 +746,8 @@ class WorldPipeline:
             return InfiniteTensor(f_t1, out_win, args=(self.coarse,),
                                   args_windows=(coarse_win,), tensor_id="latent_map_T1",
                                   f_fused=self._latent_t1_fused(t_init, t_inter),
-                                  counts=self._stage_counts("latent_t1"), **kw)
+                                  counts=t1_counts, **kw)
+        init_f, init_fused = self._latent_program(t_init, 5819, with_prev=False)
         tensor = InfiniteTensor(init_f, out_win, args=(self.coarse,),
                                 args_windows=(coarse_win,), tensor_id="init_latent_map",
                                 f_fused=init_fused, counts=self._stage_counts("latent_init"),
@@ -749,6 +773,9 @@ class WorldPipeline:
         wwin = self._tensor(linear_weight_window(TILE))
         model = self.decoder_model
         dt = self.compute_dtype
+        counts = self._stage_counts("decoder")
+        buckets = self._mesh_buckets((1, 2, 4, 8, 16))
+        self._graphs.reserve(model, buckets[-1])
 
         # The portable field reuses the latent stage's offsets 5819 + step, as
         # the reference does: the decoder tile index hr // 512 equals the
@@ -767,7 +794,7 @@ class WorldPipeline:
                 t = torch.tensor(t_val, dtype=torch.float32, device=self.device)
                 x_t = torch.cos(t) * sample + torch.sin(t) * (z * SD)
                 x_in = torch.cat([x_t / SD, up], dim=1).permute(0, 2, 3, 1).to(dt).contiguous()
-                pred = -self._forward(model, x_in, t.expand(B).to(dt), [])
+                pred = -self._forward(model, x_in, t.expand(B).to(dt), [], counts)
                 pred = pred.permute(0, 3, 1, 2).float()
                 sample = torch.cos(t) * x_t - torch.sin(t) * SD * pred
             sample = sample / SD
@@ -786,11 +813,11 @@ class WorldPipeline:
             args=(self.latents,),
             args_windows=(TensorWindow((6, TILE // lc, TILE // lc),
                                        (6, STRIDE // lc, STRIDE // lc)),),
-            batch_buckets=self._mesh_buckets((1, 2, 4, 8, 16)), tile_store=self.tile_store,
+            batch_buckets=buckets, tile_store=self.tile_store,
             tensor_id="init_residual_map", device=self.device, shape=(2, None, None),
             device_cache_tiles=96, defer_host=self._defer_host,
             f_fused=f_fused if self.mesh is None else None,
-            counts=self._stage_counts("decoder"))
+            counts=counts)
 
     # ==================================================================
     # Output composition
@@ -1100,7 +1127,7 @@ class WorldPipeline:
 
     def close(self):
         """Close the tile store (a temporary world file is removed) and drop
-        the stage tensors."""
+        the stage tensors and the forwards' CUDA graphs."""
         if self.tile_store is not None:
             self.tile_store.close()
         if self._is_temp_file and self._hdf5_file_path in _TEMP_FILES:
@@ -1111,6 +1138,7 @@ class WorldPipeline:
             _TEMP_FILES.discard(self._hdf5_file_path)
         self.tile_store = None
         self.coarse = self.latents = self.residual = None
+        self._graphs.clear()
 
     def __enter__(self):
         return self

@@ -41,8 +41,10 @@ Each tensor counts, in ``counts`` (which its owner may share across
 rebuilds): ``windows``, the windows its window function computed, and
 ``padded``, the rows bucket padding added to those calls; ``lookups``, the
 distinct windows a planning pass looked up, and ``hits``, those of them
-already resident.  Planning runs under ``td.plan`` profiler ranges
-(``common/spans.py``).
+already resident.  Its owner counts the stage's model forwards there:
+``forwards``, and of them the CUDA graphs ``captures`` and ``replays``
+(``pipeline/world.py``, ``runtime/cuda_graphs.py``).  Planning runs under
+``td.plan`` profiler ranges (``common/spans.py``).
 """
 from __future__ import annotations
 
@@ -250,7 +252,8 @@ def _traced_geometry(window: TensorWindow, boxes, slot_of):
 
 def new_counts() -> dict:
     """A stage tensor's counters, all zero."""
-    return {"windows": 0, "padded": 0, "lookups": 0, "hits": 0}
+    return {"windows": 0, "padded": 0, "lookups": 0, "hits": 0,
+            "forwards": 0, "captures": 0, "replays": 0}
 
 
 class InfiniteTensor:

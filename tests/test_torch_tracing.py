@@ -103,14 +103,15 @@ def _flat_tensor(fused: bool):
 @pytest.mark.parametrize("fused", [False, True], ids=["staged", "fused"])
 def test_window_and_padding_counts_under_buckets_1_4(fused):
     t = _flat_tensor(fused)
+    no_forwards = {"forwards": 0, "captures": 0, "replays": 0}  # a bare tensor runs no model
     region = [(0, 1), (0, 12), (0, 8)]  # 3 x 2 = 6 windows: chunks of 4 and 2 (+2 padding)
     t.ensure_region(region)
-    assert t.counts == {"windows": 6, "padded": 2, "lookups": 6, "hits": 0}
+    assert t.counts == {"windows": 6, "padded": 2, "lookups": 6, "hits": 0, **no_forwards}
     t.ensure_region(region)
-    assert t.counts == {"windows": 6, "padded": 2, "lookups": 12, "hits": 6}
+    assert t.counts == {"windows": 6, "padded": 2, "lookups": 12, "hits": 6, **no_forwards}
     t.ensure_region([(0, 1), (0, 4), (0, 4)])  # one resident window
     t.ensure_region([(0, 1), (12, 16), (0, 4)])  # one new window: bucket 1, no padding
-    assert t.counts == {"windows": 7, "padded": 2, "lookups": 14, "hits": 7}
+    assert t.counts == {"windows": 7, "padded": 2, "lookups": 14, "hits": 7, **no_forwards}
     assert np.all(t[:, 0:16, 0:8] == 1.0)
 
 
