@@ -6,6 +6,6 @@ API (``program.py``), warms it, drives the cell's traffic mix through HTTP
 clients for the measured window (``load.py``), reads the per-layer spans and
 the device trace in a traced run (``trace.py``), and judges the served tiles
 against the plain reference of ``port_bench/reference`` (``check.py``).
-Configurations, traffic mixes, cells and metric readers are files under
-``port_bench/`` found by name (``registry.py``).
+Configurations, world kinds, traffic mixes, cells and metric readers are
+files under ``port_bench/`` found by name (``registry.py``).
 """

@@ -18,8 +18,7 @@ SAMPLE_TILES = 4           # tiles of a run compared with the reference, drawn .
 SAMPLE_FROM = 8            # ... from the last ones served
 PROFILE_SECONDS = 3.0      # the profiled part of a traced run, after its window ...
 PROFILE_CAP = 120.0        # ... under load until the profiler has stopped, at most this
-MODEL_STAGE_KEYS = ("coarse", "latent_init", "latent_step", "decoder", "compose", "fetch",
-                    "prefetch")
+HOST_STAGE_KEYS = ("compose", "fetch", "prefetch")  # logged after the kind's model stages
 
 
 class NoCard(RuntimeError):
@@ -73,16 +72,22 @@ def launch_counts() -> dict:
 
 def serve(name: str, seed: int, seconds: float, trace: bool, *, t_process: float,
           device: str = "cuda", workload: dict | None = None, config: dict | None = None,
-          mix: dict | None = None, bench: dict | None = None) -> dict:
+          mix: dict | None = None, bench: dict | None = None,
+          bench_dir: str = registry.BENCH_DIR) -> dict:
     """Set-up, warm-up, the window (and with ``trace`` the profiled part),
     then the program's side of the output check, and the program freed.
     Raises ``NoCard`` without the chips the cell asks for.  ``workload``,
     ``config``, ``mix`` (the traffic) and ``bench`` replace the files found by
-    name (the CPU tests' small cells)."""
+    name (the CPU tests' small cells); ``bench_dir`` is where the files are
+    found."""
     bench = bench if bench is not None else registry.benchmark()
     entry = next(w for w in bench["workloads"] if w["name"] == name)
-    wl = workload if workload is not None else registry.workload(name)
-    cfg = config if config is not None else registry.config(entry["config"])
+    wl = workload if workload is not None else registry.workload(name, bench_dir)
+    cfg = config if config is not None else registry.config(entry["config"], bench_dir)
+    kind = registry.world_kind(cfg, bench_dir)
+    if set(cfg["models"]) != set(kind.MODELS):
+        raise ValueError(f"the configuration's models {sorted(cfg['models'])} are not its "
+                         f"world kind's {list(kind.MODELS)}")
     if device == "cuda" and (not torch.cuda.is_available()
                              or torch.cuda.device_count() < entry["chips"]):
         raise NoCard(f"{name} needs {entry['chips']} CUDA device(s); "
@@ -91,14 +96,15 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *, t_process: float
     phase("imports")
     sd = seeds(seed)
     dtype = cfg["dtype"]
-    plan = traffic.plan(sd["traffic"], mix if mix is not None
-                        else registry.traffic(entry["traffic"]))
+    mix = mix if mix is not None else registry.traffic(entry["traffic"], bench_dir)
+    plan = traffic.plan(sd["traffic"], mix, registry.layout(mix["pattern"], bench_dir))
 
     # -- set-up: weights, the world behind its server, the cell's shapes warmed
-    states = weights.make(cfg["models"], sd["weights"], device)
+    states = weights.make(cfg["models"], sd["weights"], device, kind.MODELS)
     models = build_models(cfg["models"], states, device)
     phase("weights and models")
-    server = Server(models, cfg["world"], sd["world"], None if dtype == "fp32" else dtype, device)
+    server = Server(models, kind.attach, cfg["world"], sd["world"],
+                    None if dtype == "fp32" else dtype, device)
     world = server.world
     phase("world bound, server up")
     # the first warm-up batch is the clients' tiles in one coalesced call, the
@@ -120,7 +126,7 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *, t_process: float
     if trace:  # the profiled part follows the measured one, under the same load
         from harness.trace import Tracer
 
-        tracer = Tracer(world, deadline, deadline + PROFILE_SECONDS,
+        tracer = Tracer(world, kind.MODELS, deadline, deadline + PROFILE_SECONDS,
                         snapshot=lambda: (stage_totals(world), launch_counts()))
         deadline += PROFILE_CAP
         until = lambda: tracer.profiled  # noqa: E731
@@ -139,10 +145,11 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *, t_process: float
     stage_delta = {k: after[k] - before.get(k, 0.0) for k in after}
     launches = {k: v - launches0[k] for k, v in launches1.items()}
     served = [r.box for r in records if r.ok and (t_stop is None or r.t1 <= t_stop)]
-    geo = work.Geometry(cfg["world"]).windows(served)
-    per_window = work.window_flops(cfg["models"], cfg["world"])
+    geo = kind.windows(cfg["world"], served)
+    per_window = kind.window_flops(cfg["models"], cfg["world"])
     run = {"window": stats, "setup_s": setup_s, "peak_bytes": peak,
-           "stage_delta": stage_delta, "spans": [], "trace": None, "roofline": {},
+           "stage_delta": stage_delta, "model_stages": tuple(kind.MODEL_STAGES),
+           "spans": [], "trace": None, "roofline": {},
            "useful_flops": work.useful_flops(geo, per_window),
            "peak_flops": work.PEAK_FLOPS[dtype]}
     breakdown = None
@@ -161,18 +168,19 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *, t_process: float
         run["trace"] = reduced
         if reduced is not None:
             breakdown = {"device_ops": reduced["device_ops"], "idle_gaps": reduced["idle_gaps"]}
-            for stage, (dev_s, shapes) in reduced["model_device_s"].items():
+            for model, (dev_s, shapes) in reduced["model_device_s"].items():
                 if dev_s > 0:
-                    roof = sum(work.roofline_s(cfg["models"][stage], n, h, dtype)
+                    roof = sum(work.roofline_s(cfg["models"][model], n, h, dtype)
                                for n, h in shapes)
-                    run["roofline"][stage] = 100.0 * roof / dev_s
+                    run["roofline"][model] = 100.0 * roof / dev_s
         phase("trace read")
         tiles = max(stats["tiles"], 1)
         log(f"[trace] card {card_line()}; {stats['tiles']} tiles in {stats['window_s']:.3f} s")
         log("[trace] kernel launches per tile: " + ", ".join(
             f"{k} {v / tiles:.3f}" for k, v in launches.items()))
         log("[trace] stage ms per tile: " + ", ".join(
-            f"{k} {1e3 * stage_delta.get(k, 0.0) / tiles:.2f}" for k in MODEL_STAGE_KEYS))
+            f"{k} {1e3 * stage_delta.get(k, 0.0) / tiles:.2f}"
+            for k in run["model_stages"] + HOST_STAGE_KEYS))
         log("[trace] windows needed by the served tiles: " + ", ".join(
             f"{k} {len(v)}" for k, v in geo.items()) + "; rows the models ran: " + ", ".join(
             f"{k} {v}" for k, v in (rows or tracer.rows).items()) + "; forwards: " + ", ".join(
@@ -185,8 +193,9 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *, t_process: float
     phase("program side of the check")
     server.stop_http()
     server.close()
-    out = {"name": name, "bench": bench, "entry": entry, "workload": wl, "config": cfg,
-           "seeds": sd, "states": states, "run": run, "breakdown": breakdown, "got": got,
+    out = {"name": name, "bench": bench, "bench_dir": bench_dir, "entry": entry, "workload": wl,
+           "config": cfg, "kind": kind, "seeds": sd, "states": states, "run": run,
+           "breakdown": breakdown, "got": got,
            "boxes": [r.box for r in sample], "attempted": len(records), "failed": failed,
            "device": device, "phase": phase}
     del server, world, models, records, tracer
@@ -199,7 +208,7 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *, t_process: float
 def reference(served: dict, quant: str = "none") -> list:
     """The reference's tiles of the served sample (``quant``: the control)."""
     cfg = served["config"]
-    return check.reference_tiles(cfg["models"], served["states"], cfg["world"],
+    return check.reference_tiles(served["kind"], cfg["models"], served["states"], cfg["world"],
                                  served["seeds"]["world"], served["boxes"], served["device"],
                                  quant)
 
@@ -226,7 +235,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_process: fl
     group = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in registry.cell_metrics(served["bench"], name, group):
-        v = registry.metric_reader(m["name"])(run)
+        v = registry.metric_reader(m["name"], served["bench_dir"])(run)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     dev = {"platform": "gpu" if device == "cuda" else device,

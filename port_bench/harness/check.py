@@ -6,8 +6,8 @@ seed) is read on the program's side: the wire payload each client received
 elevation and climate for the same box through ``WorldPipeline.get``, and
 the three stage regions the tile reads (``read_device``: the coarse region,
 the latent region after both T=2 phases, the decoder residual).  Then the
-program is freed and ``reference.world.RefWorld`` evaluates the same tiles
-from the same weights, seed and boxes.
+program is freed and the world kind's reference (``reference.world.RefWorld``
+for ``t2``) evaluates the same tiles from the same weights, seed and boxes.
 
 The numbers, each the largest reading over the sample:
 - a gap (``GAPS``): per channel, max |program - reference| over the
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from reference.unet import QUANTIZERS, UNet
-from reference.world import LOWFREQ_STD, RefWorld, climate_ranges, compose, elev_ranges
+from reference.world import LOWFREQ_STD, climate_ranges, compose, elev_ranges
 
 GAPS = ("coarse", "latents", "residual", "elev", "climate")
 FLIPS = {"wire_elev_flips": "wire_elev", "wire_climate_flips": "wire_climate"}
@@ -116,16 +116,16 @@ def program_tiles(world, records) -> list:
     return out
 
 
-def reference_tiles(model_cfgs, states, world_cfg, world_seed, boxes, device,
+def reference_tiles(kind, model_cfgs, states, world_cfg, world_seed, boxes, device,
                     quant: str = "none") -> list:
-    """The reference's side of each box (``quant`` != "none": the control)."""
+    """The reference's side of each box: the world kind's ``reference`` over
+    a reference U-Net of every model (``quant`` != "none": the control)."""
     models = {}
     for s, cfg in model_cfgs.items():
         m = UNet(cfg, device=device, quant=quant)
         m.load_state_dict(states[s])
         models[s] = m.eval()
-    ref = RefWorld(models["coarse"], models["base"], models["decoder"], world_seed,
-                   world_cfg, device)
+    ref = kind.reference(models, world_seed, world_cfg, device)
     out = []
     with torch.no_grad():
         for box in boxes:

@@ -15,14 +15,14 @@ import torch
 
 
 def build_models(model_cfgs: dict, states: dict, device) -> dict:
-    """The port's three ``EDMUnet2D`` modules, built on the meta device (no
-    initialisation) and given the benchmark's weights."""
+    """The port's ``EDMUnet2D`` module of each model in ``states``, built on
+    the meta device (no initialisation) and given the benchmark's weights."""
     from terrain_diffusion_tpu_torch.nn.edm_unet import EDMUnet2D, EDMUnetConfig
 
-    from harness.weights import STAGES, for_port
+    from harness.weights import for_port
 
     out = {}
-    for s in STAGES:
+    for s in states:
         with torch.device("meta"):
             m = EDMUnet2D(EDMUnetConfig.from_dict(model_cfgs[s]), device="meta",
                           generator=torch.Generator())
@@ -36,15 +36,15 @@ def build_models(model_cfgs: dict, states: dict, device) -> dict:
 
 class Server:
     """The port's world served on ``127.0.0.1:<port>``; ``world`` is the
-    ``WorldPipeline``, ``pipeline`` the ``CoalescedPipeline`` the handlers
-    call."""
+    ``WorldPipeline`` that ``attach(world, models)`` (the world kind's) gave
+    its models, ``pipeline`` the ``CoalescedPipeline`` the handlers call."""
 
-    def __init__(self, models: dict, world_cfg: dict, world_seed: int, dtype, device):
+    def __init__(self, models: dict, attach, world_cfg: dict, world_seed: int, dtype, device):
         from terrain_diffusion_tpu_torch.pipeline.world import WorldPipeline
         from terrain_diffusion_tpu_torch.serving import api
 
         self.world = WorldPipeline(seed=world_seed, dtype=dtype, device=device, **world_cfg)
-        self.world.set_models(models["coarse"], models["base"], models["decoder"])
+        attach(self.world, models)
         api.configure(pipeline=self.world, coalesce=True)
         self.pipeline = api._get_pipeline()  # binds the store, wraps in the coalescer
         self.httpd = api.app.make_server("127.0.0.1", 0, quiet=True, threaded=True,

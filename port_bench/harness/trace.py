@@ -7,8 +7,9 @@ port's layers, on the one pipeline worker thread that the coalescer runs:
   span and the query count of every call, and a ``record_function`` range;
 - the world's ``_timed`` stage spans get a ``record_function`` range each
   (coarse, latent_init, latent_step, decoder, compose, fetch, prefetch);
-- each stage model gets forward hooks: the rows it ran, and a
-  ``record_function`` range named by the model, its batch and map size.
+- each model of the world kind (``MODELS``, where the world holds it) gets
+  forward hooks: the rows it ran, and a ``record_function`` range named by
+  the model, its batch and map size.
 
 ``torch.profiler`` (CPU and CUDA) runs on the worker thread over a part that
 follows the measured window under the same load, started and stopped between
@@ -29,13 +30,13 @@ import time
 
 import torch
 
-MODEL_STAGES = {"coarse": "coarse_model", "base": "base_model", "decoder": "decoder_model"}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 class Tracer:
-    def __init__(self, world, profile_from: float, profile_to: float, snapshot):
-        """Instrument ``world`` (a ``WorldPipeline``); the profiler covers the
+    def __init__(self, world, models: dict, profile_from: float, profile_to: float, snapshot):
+        """Instrument ``world`` (a ``WorldPipeline``) and its ``models`` (model
+        name -> the world's attribute that holds it); the profiler covers the
         first ``get_many`` call at or after ``profile_from`` to the first at
         or after ``profile_to`` (``time.perf_counter`` times).  When it
         starts, ``t_prof`` takes the time and ``at_prof`` what ``snapshot()``
@@ -44,7 +45,7 @@ class Tracer:
         self.snapshot = snapshot
         self.t_prof = self.at_prof = None
         self.spans = []            # (t0, t1, queries) of every get_many
-        self.rows = collections.Counter()    # stage model -> rows run
+        self.rows = collections.Counter()    # model -> rows run
         self.forwards = collections.Counter()
         self.profile_from, self.profile_to = profile_from, profile_to
         self.prof = None
@@ -56,18 +57,18 @@ class Tracer:
         world.get_many = self._get_many
         world._timed = self._timed
         self._hooks = []
-        for stage, attr in MODEL_STAGES.items():
+        for name, attr in models.items():
             model = getattr(world, attr)
-            self._hooks.append(model.register_forward_pre_hook(self._pre(stage)))
+            self._hooks.append(model.register_forward_pre_hook(self._pre(name)))
             self._hooks.append(model.register_forward_hook(self._post))
 
-    def _pre(self, stage):
+    def _pre(self, name):
         def hook(_module, args):
             x = args[0]
-            self.rows[stage] += x.shape[0]
-            self.forwards[stage] += 1
+            self.rows[name] += x.shape[0]
+            self.forwards[name] += 1
             rf = torch.profiler.record_function(
-                f"bench.fwd.{stage}.{x.shape[0]}.{x.shape[1]}.{x.shape[2]}")
+                f"bench.fwd.{name}.{x.shape[0]}.{x.shape[1]}.{x.shape[2]}")
             rf.__enter__()
             self._ranges.append(rf)
         return hook
@@ -186,12 +187,12 @@ def reduce_trace(trace: dict) -> dict | None:
     model_device_s = collections.defaultdict(lambda: [0.0, []])
     for r in ranges:
         if r["name"].startswith("bench.fwd."):
-            _, _, stage, n, h, _w = r["name"].split(".")
+            _, _, model, n, h, _w = r["name"].split(".")
             lo = bisect.bisect_left(starts, r["ts"])
             hi = bisect.bisect_right(starts, r["ts"] + r["dur"])
-            model_device_s[stage][0] += sum(d for (_ts, tid), d in launched[lo:hi]
+            model_device_s[model][0] += sum(d for (_ts, tid), d in launched[lo:hi]
                                             if tid == r.get("tid"))
-            model_device_s[stage][1].append((int(n), int(h)))
+            model_device_s[model][1].append((int(n), int(h)))
     return {"busy_s": busy_us * 1e-6, "window_s": (w1 - w0) * 1e-6,
             "device_ops": [[n, s] for n, s in op_time.most_common(10)],
             "idle_gaps": [[lab, s] for s, lab in gaps],

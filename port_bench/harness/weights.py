@@ -1,4 +1,4 @@
-"""Random weights of the three stage models, made on the device from the seed.
+"""Random weights of a world kind's models, made on the device from the seed.
 
 One state dict a model, with the port's names, drawn in two calls on a
 generator of the device (one normal and one uniform draw, sliced): the conv,
@@ -16,9 +16,6 @@ import math
 
 import torch
 
-STAGES = ("coarse", "base", "decoder")
-
-
 def _shapes(model_cfg: dict) -> dict:
     from reference.unet import UNet
 
@@ -27,13 +24,14 @@ def _shapes(model_cfg: dict) -> dict:
     return {k: tuple(v.shape) for k, v in m.state_dict().items()}
 
 
-def make(model_cfgs: dict, seed: int, device) -> dict:
-    """{stage: {name: float32 tensor on device}} for the three models."""
+def make(model_cfgs: dict, seed: int, device, models) -> dict:
+    """{model: {name: float32 tensor on device}} for the models named in
+    ``models`` (a world kind's ``MODELS``), drawn in that order."""
     device = torch.device(device)
-    shapes = {s: _shapes(model_cfgs[s]) for s in STAGES}
-    normal = [(s, k, sh) for s in STAGES for k, sh in shapes[s].items()
+    shapes = {s: _shapes(model_cfgs[s]) for s in models}
+    normal = [(s, k, sh) for s in shapes for k, sh in shapes[s].items()
               if not k.endswith("phases")]
-    uniform = [(s, k, sh) for s in STAGES for k, sh in shapes[s].items()
+    uniform = [(s, k, sh) for s in shapes for k, sh in shapes[s].items()
                if k.endswith("phases")]
     g = torch.Generator(device=device)
     g.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
@@ -41,14 +39,14 @@ def make(model_cfgs: dict, seed: int, device) -> dict:
     u_total = sum(math.prod(sh) for _, _, sh in uniform)
     draws = {"n": torch.randn(n_total, generator=g, device=device),
              "u": torch.rand(u_total, generator=g, device=device)}
-    out = {s: {} for s in STAGES}
+    out = {s: {} for s in shapes}
     for kind, entries in (("n", normal), ("u", uniform)):
         off = 0
         for s, k, sh in entries:
             n = math.prod(sh)
             out[s][k] = draws[kind][off:off + n].reshape(sh)
             off += n
-    for s in STAGES:
+    for s in out:
         for k, t in out[s].items():
             if k.endswith("emb_gain"):
                 out[s][k] = t * 0.5

@@ -2,15 +2,13 @@
 
 Frozen copies of ``chip_smoke.py``'s ``unet_forward_flops``, ``block_work``,
 ``conv_work`` and ``attn_work`` (written over the reference U-Net's plan and
-shapes, so a count does not depend on what implements the work), and the
-window arithmetic that says which stage windows the served tiles needed.
+shapes, so a count does not depend on what implements the work), shared by
+every world kind; which stage windows the served tiles needed, and the FLOPs
+of one, are the kind's (``worlds/<kind>.py``).
 """
 from __future__ import annotations
 
 from reference.unet import plan
-from reference.world import (COARSE_STRIDE, COARSE_TILE, LATENT_STRIDE, LATENT_TILE,
-                             climate_ranges, elev_ranges)
-from reference.window import TensorWindow
 
 # NVIDIA H100 SXM5 data sheet, dense, at the 700 W limit
 PEAKS = {
@@ -21,7 +19,6 @@ PEAKS = {
 }
 PEAK_FLOPS = {"fp32": PEAKS["fp32_flops"], "bf16": PEAKS["bf16_flops"]}
 ELEMENT_BYTES = {"fp32": 4, "bf16": 2}
-COARSE_STEPS = 20  # DPM-Solver++ steps of one coarse window
 
 
 def _levels(cfg: dict, h: int):
@@ -106,47 +103,6 @@ def roofline_s(cfg: dict, n: int, h: int, dtype: str) -> float:
     of FLOPs over the type's peak and bytes over the HBM rate, summed."""
     peak = PEAK_FLOPS[dtype]
     return sum(max(f / peak, b / PEAKS["hbm_bytes"]) for f, b in forward_ops(cfg, n, h, dtype))
-
-
-class Geometry:
-    """Which windows of each stage tensor a set of served tiles needs."""
-
-    def __init__(self, world_cfg: dict):
-        lc = world_cfg["latent_compression"]
-        dt, ds = world_cfg["decoder_tile_size"], world_cfg["decoder_tile_stride"]
-        self.lc = lc
-        self.coarse = TensorWindow((7, COARSE_TILE, COARSE_TILE), (7, COARSE_STRIDE, COARSE_STRIDE))
-        self.latent = TensorWindow((6, LATENT_TILE, LATENT_TILE), (6, LATENT_STRIDE, LATENT_STRIDE))
-        self.decoder = TensorWindow((2, dt, dt), (2, ds, ds))
-        self.coarse_arg = TensorWindow((7, 4, 4), (7, 1, 1), offset=(0, -1, -1))
-        self.latent_arg = TensorWindow((6, dt // lc, dt // lc), (6, ds // lc, ds // lc))
-
-    def windows(self, boxes) -> dict:
-        """{stage: set of window indices} that the tiles ``boxes`` need, each
-        window once: the decoder windows and step windows their elevation
-        reads, the init windows under those, the coarse windows under both
-        latent phases and the climate reads."""
-        dec, step, coarse = set(), set(), set()
-        for (i1, j1, i2, j2) in boxes:
-            res_r, lat_r, _, _ = elev_ranges(i1, j1, i2, j2, self.lc)
-            dec.update(self.decoder.windows_overlapping(res_r))
-            step.update(self.latent.windows_overlapping(lat_r))
-            coarse.update(self.coarse.windows_overlapping(climate_ranges(i1, j1, i2, j2, self.lc)))
-        for d in dec:
-            step.update(self.latent.windows_overlapping(self.latent_arg.box(d)))
-        init = {w for s in step for w in self.latent.windows_overlapping(self.latent.box(s))}
-        for s in step | init:
-            coarse.update(self.coarse.windows_overlapping(self.coarse_arg.box(s)))
-        return {"coarse": coarse, "latent_init": init, "latent_step": step, "decoder": dec}
-
-
-def window_flops(model_cfgs: dict, world_cfg: dict) -> dict:
-    """FLOPs of one window of each stage."""
-    base = unet_forward_flops(model_cfgs["base"], 1, LATENT_TILE)
-    return {"coarse": COARSE_STEPS * unet_forward_flops(model_cfgs["coarse"], 1, COARSE_TILE),
-            "latent_init": base, "latent_step": base,
-            "decoder": unet_forward_flops(model_cfgs["decoder"], 1,
-                                          world_cfg["decoder_tile_size"])}
 
 
 def useful_flops(windows: dict, per_window: dict) -> float:

@@ -64,7 +64,11 @@ class RefWorld:
 
     def __init__(self, coarse, base, decoder, seed: int, cfg: dict, device):
         if cfg.get("T", 2) != 2 or cfg.get("onestep_latent", False):
-            raise ValueError("the reference evaluates the T=2 world with its intermediate step")
+            raise ValueError(
+                "RefWorld evaluates the T=2 world with its intermediate step, the world kind "
+                "t2 (port_bench/worlds/t2.py); a T=1, one-step or guided world is a "
+                "world kind of its own, port_bench/worlds/<kind>.py, named by the "
+                "configuration's world_kind, whose reference() builds its plain reference")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.models = {"coarse": coarse, "base": base, "decoder": decoder}

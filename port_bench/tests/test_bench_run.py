@@ -63,8 +63,8 @@ def _step_unchanged(mp):
 
     orig = WorldPipeline._latent_core
 
-    def core(self, t_value, seed_offset, with_prev):
-        f = orig(self, t_value, seed_offset, with_prev)
+    def core(self, t_value, seed_offset, with_prev, *args, **kwargs):
+        f = orig(self, t_value, seed_offset, with_prev, *args, **kwargs)
         return (lambda ctxs, coarses, prevs=None: prevs) if with_prev else f
 
     mp.setattr(WorldPipeline, "_latent_core", core)
@@ -75,8 +75,8 @@ def _half_batch_left_out(mp):
 
     orig = WorldPipeline._forward
 
-    def forward(self, model, x, labels, cond):
-        out = orig(self, model, x, labels, cond)
+    def forward(self, model, x, labels, cond, *args, **kwargs):
+        out = orig(self, model, x, labels, cond, *args, **kwargs)
         h = out.shape[0] // 2
         if h:
             out = torch.cat([out[:h], out[:h].mean(0, keepdim=True).expand_as(out[h:])])
