@@ -9,7 +9,15 @@ Counterpart of ``terrain_diffusion_tpu.pipeline.world`` (serving path):
   (init + one intermediate step; T=2 blends the init across tiles before
   the step, T=1 chains both inside one window function; onestep_latent
   drops the step), each tile conditioned on a 58-dim vector built from its
-  4x4 coarse context window;
+  4x4 coarse context window.  ``latent_sampler="dpm"`` serves the
+  undistilled base instead: one stage tensor whose window runs
+  ``latent_steps`` DPM-Solver++ steps (the coarse stage's schedule) from
+  ``sigma_max`` times the noise at offset 5819, each step's denoiser the
+  AutoGuidance combination ``g + guidance_scale * (m - g)`` of the base
+  model ``m`` and the guide model ``g`` (``set_models(..., guide=)``) on
+  the same input; at ``guidance_scale`` 1, which alone needs no guide, one
+  forward a step.  All steps run inside the window, and the windows are
+  blended once, as the coarse stage does;
 - decoder stage: 512-px tiles / stride 384, one consistency step on the
   x8-nearest-upsampled latents; its residual blocks and in/out convs run
   through the hand-written CUDA kernels on the card;
@@ -64,6 +72,7 @@ import torch
 
 from terrain_diffusion_tpu_torch import use_full_f32
 from terrain_diffusion_tpu_torch.common.spans import StageClock, span
+from terrain_diffusion_tpu_torch.evaluation.samplers import _with_guidance
 from terrain_diffusion_tpu_torch.nn import torch_compat
 from terrain_diffusion_tpu_torch.nn.layers import BLOCK_IMPLS, with_block_impl
 from terrain_diffusion_tpu_torch.ops import mp
@@ -104,6 +113,7 @@ SD = SCHED.sigma_data
 # dtype= values the port serves -> the stage models' compute type
 COMPUTE_DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16,
                   "fp16": torch.float16}
+LATENT_SAMPLERS = ("consistency", "dpm")
 
 
 _TEMP_FILES = set()
@@ -155,6 +165,7 @@ class WorldPipeline:
     COARSE_MODEL_FOLDER = "coarse_model"
     BASE_MODEL_FOLDER = "base_model"
     DECODER_MODEL_FOLDER = "decoder_model"
+    GUIDE_MODEL_FOLDER = "guide_model"
     CONFIG_NAME = "config.json"
 
     def __init__(self, seed: int | None = None,
@@ -171,9 +182,18 @@ class WorldPipeline:
                  onestep_latent: bool = False, decoder_tile_size: int = 512,
                  decoder_tile_stride: int = 384, noise_mode: str = "threefry",
                  block_impl: str = "pallas", mesh: Mesh | None = None,
-                 device="cuda", **deprecated_kwargs):
+                 latent_sampler: str = "consistency", latent_steps: int = 15,
+                 guidance_scale: float = 1.5, device="cuda", **deprecated_kwargs):
         if T not in (1, 2):
             raise ValueError(f"T must be 1 or 2, got {T}")
+        if latent_sampler not in LATENT_SAMPLERS:
+            raise ValueError(f"latent_sampler must be one of {LATENT_SAMPLERS}, "
+                             f"got {latent_sampler!r}")
+        if latent_sampler == "dpm" and (T != 2 or onestep_latent):
+            raise ValueError("latent_sampler='dpm' runs its steps inside one window: it takes "
+                             "neither T=1 nor onestep_latent")
+        if int(latent_steps) < 1:
+            raise ValueError(f"latent_steps must be at least 1, got {latent_steps}")
         if block_impl not in BLOCK_IMPLS:
             raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, got {block_impl!r}")
         if mesh is not None and (not isinstance(mesh, Mesh) or mesh.group):
@@ -198,6 +218,9 @@ class WorldPipeline:
         self.decoder_tile_stride = decoder_tile_stride
         self.noise_mode = noise_mode
         self.block_impl = block_impl
+        self.latent_sampler = latent_sampler
+        self.latent_steps = int(latent_steps)
+        self.guidance_scale = float(guidance_scale)
         self.mesh = mesh
         self._replicas = {}  # id(model) -> the model's replica on each mesh slot
         self._graphs = ForwardGraphs()  # the stage forwards' CUDA graphs (_forward)
@@ -217,7 +240,7 @@ class WorldPipeline:
             "coarse_means": list(coarse_means) if coarse_means is not None else list(DEFAULT_COARSE_MEANS),
             "coarse_stds": list(coarse_stds) if coarse_stds is not None else list(DEFAULT_COARSE_STDS),
         }
-        self.coarse_model = self.base_model = self.decoder_model = None
+        self.coarse_model = self.base_model = self.decoder_model = self.guide_model = None
         self.tile_store = None
         self._hdf5_file_path = None
         self._is_temp_file = False
@@ -240,28 +263,37 @@ class WorldPipeline:
             config = json.load(f)
         config.pop("_class_name", None)
         config.update(kwargs)
-        pipe = cls(**config)
-        return pipe.set_models(*(torch_compat.load_model(os.path.join(path, folder),
-                                                         device=pipe.device)
-                                 for folder in (cls.COARSE_MODEL_FOLDER,
-                                                cls.BASE_MODEL_FOLDER,
-                                                cls.DECODER_MODEL_FOLDER)))
+        guide = os.path.join(path, cls.GUIDE_MODEL_FOLDER)
+        return cls.from_local_models(
+            *(os.path.join(path, folder) for folder in (cls.COARSE_MODEL_FOLDER,
+                                                        cls.BASE_MODEL_FOLDER,
+                                                        cls.DECODER_MODEL_FOLDER)),
+            guide_model_path=guide if os.path.isdir(guide) else None, **config)
 
     @classmethod
     def from_local_models(cls, coarse_model_path=None, base_model_path=None,
-                          decoder_model_path=None, **kwargs) -> "WorldPipeline":
-        """A pipeline over three model directories given one by one."""
+                          decoder_model_path=None, guide_model_path=None,
+                          **kwargs) -> "WorldPipeline":
+        """A pipeline over the model directories given one by one (the guide
+        model's only for a guided ``latent_sampler="dpm"`` world)."""
         pipe = cls(**kwargs)
-        return pipe.set_models(*(torch_compat.load_model(path, device=pipe.device)
-                                 for path in (coarse_model_path, base_model_path,
-                                              decoder_model_path)))
+        load = functools.partial(torch_compat.load_model, device=pipe.device)
+        return pipe.set_models(load(coarse_model_path), load(base_model_path),
+                               load(decoder_model_path),
+                               guide=load(guide_model_path) if guide_model_path else None)
 
     def get_config(self) -> dict:
-        """The world's config.json (the JAX package's keys)."""
-        return {"_class_name": "WorldPipeline", "native_resolution": self.native_resolution,
-                "T": self.T, **self.kwargs, "onestep_latent": self.onestep_latent,
-                "decoder_tile_size": self.decoder_tile_size,
-                "decoder_tile_stride": self.decoder_tile_stride}
+        """The world's config.json (the JAX package's keys; a ``"dpm"``
+        world adds its sampler's three, which the JAX package does not
+        serve)."""
+        config = {"_class_name": "WorldPipeline", "native_resolution": self.native_resolution,
+                  "T": self.T, **self.kwargs, "onestep_latent": self.onestep_latent,
+                  "decoder_tile_size": self.decoder_tile_size,
+                  "decoder_tile_stride": self.decoder_tile_stride}
+        if self.latent_sampler == "dpm":
+            config.update(latent_sampler=self.latent_sampler, latent_steps=self.latent_steps,
+                          guidance_scale=self.guidance_scale)
+        return config
 
     def save_pretrained(self, save_directory: str):
         """Write the world directory ``from_pretrained`` reads."""
@@ -270,17 +302,29 @@ class WorldPipeline:
             json.dump(self.get_config(), f, indent=2)
         for folder, model in ((self.COARSE_MODEL_FOLDER, self.coarse_model),
                               (self.BASE_MODEL_FOLDER, self.base_model),
-                              (self.DECODER_MODEL_FOLDER, self.decoder_model)):
-            torch_compat.save_model(model, os.path.join(save_directory, folder))
+                              (self.DECODER_MODEL_FOLDER, self.decoder_model),
+                              (self.GUIDE_MODEL_FOLDER, self.guide_model)):
+            if model is not None:
+                torch_compat.save_model(model, os.path.join(save_directory, folder))
 
-    def set_models(self, coarse, base, decoder):
-        """Attach the three stage models (``EDMUnet2D`` modules), with the
-        world's ``block_impl``."""
+    def set_models(self, coarse, base, decoder, guide=None):
+        """Attach the stage models (``EDMUnet2D`` modules), with the world's
+        ``block_impl``: the three stages' and, for ``latent_sampler="dpm"``,
+        the base model's AutoGuidance guide, which such a world needs unless
+        its ``guidance_scale`` is 1."""
+        if guide is None and self.latent_sampler == "dpm" and self.guidance_scale != 1.0:
+            raise ValueError(f"a latent_sampler='dpm' world at guidance_scale "
+                             f"{self.guidance_scale} needs its guide model: "
+                             f"set_models(..., guide=), or a guide_model/ folder")
         self.coarse_model, self.base_model, self.decoder_model = (
             with_block_impl(m.to(self.device).eval(), self.block_impl)
             for m in (coarse, base, decoder))
+        self.guide_model = (with_block_impl(guide.to(self.device).eval(), self.block_impl)
+                            if guide is not None else None)
         self._stage_of = {id(self.coarse_model): "coarse", id(self.base_model): "base",
                           id(self.decoder_model): "decoder"}
+        if self.guide_model is not None:
+            self._stage_of[id(self.guide_model)] = "guide"
         self._replicas = {}
         self._graphs.clear()  # graphs and replicas hold the old weights
         if self.tile_store is not None:
@@ -470,10 +514,12 @@ class WorldPipeline:
         """{stage: {windows, padded, lookups, hits, forwards, captures,
         replays}} since the world was made (a rebuild keeps them): per stage
         tensor (``coarse``, ``latent_init``, ``latent_step``, or
-        ``latent_t1`` at T=1, ``decoder``), the windows its stage computed,
-        the rows that bucket padding added to them, the windows that
-        planning looked up and found resident, its model forwards, and the
-        CUDA graphs of them captured and replayed (``_forward``)."""
+        ``latent_t1`` at T=1, or ``latent_dpm`` with ``latent_sampler="dpm"``,
+        whose forwards are the base model's and the guide's, ``decoder``),
+        the windows its stage computed, the rows that bucket padding added
+        to them, the windows that planning looked up and found resident, its
+        model forwards, and the CUDA graphs of them captured and replayed
+        (``_forward``)."""
         return {k: dict(v) for k, v in self._counts.items()}
 
     def _stage_counts(self, stage: str) -> dict:
@@ -718,6 +764,65 @@ class WorldPipeline:
 
         return f_fused
 
+    def _dpm_latent_core(self, counts: dict):
+        """The guided DPM-Solver++ window of ``latent_sampler="dpm"``:
+        ``core(ctxs, coarses)`` with the (B, 7, 4, 4) coarse windows, shared
+        by the staged and the fused calls.  ``latent_steps`` steps of the
+        coarse stage's schedule from ``sigma_max`` times the noise at offset
+        5819; each step's denoiser is ``g + guidance_scale * (m - g)`` of the
+        base model ``m`` and the guide ``g`` on the same input
+        (``evaluation/samplers.py::_with_guidance``; the base alone at scale
+        1), in float32 once out of the models.  Its forwards count in ``counts``."""
+        TILE, STRIDE = 64, 32
+        steps = self.latent_steps
+        sigma0 = float(compute_sigmas(SCHED, steps)[0])
+        dt = self.compute_dtype
+        wwin = self._tensor(linear_weight_window(TILE))
+
+        def stage_model(model):
+            return (None if model is None else
+                    lambda x, label, cond: self._forward(model, x, label, cond, counts).float())
+
+        denoiser = _with_guidance(stage_model(self.base_model), stage_model(self.guide_model),
+                                  self.guidance_scale)
+
+        def core(ctxs, coarses):
+            B = len(ctxs)
+            x = self._noise(self.seed + 5819, ctxs[:, 1] * STRIDE, ctxs[:, 2] * STRIDE,
+                            TILE, TILE, 5, TILE) * sigma0
+            cond = [self._build_cond(coarses).to(dt)]
+
+            def model_fn(scaled, sigma):
+                label = torch.full((B,), float(trigflow_precondition_noise(sigma, SD)),
+                                   device=self.device, dtype=dt)
+                return denoiser(scaled.permute(0, 2, 3, 1).to(dt), label, cond).permute(0, 3, 1, 2)
+
+            sample = sample_dpm(model_fn, x, SCHED, steps) / SD
+            return torch.cat([sample * wwin, wwin.expand(B, 1, TILE, TILE)], dim=1)
+
+        return core
+
+    def _build_dpm_latent_stage(self, out_win, coarse_win, kw):
+        """The one latent stage tensor of ``latent_sampler="dpm"``, on the
+        coarse map alone, timed and counted as ``latent_dpm``."""
+        counts = self._stage_counts("latent_dpm")
+        core = self._dpm_latent_core(counts)
+        if self.guide_model is not None:
+            self._graphs.reserve(self.guide_model, kw["batch_buckets"][-1])
+
+        def fused(ctxs, out_atlas, out_slots, arg_views):
+            coarses = assemble_from_atlas(*arg_views[0], (7, 4, 4))
+            _write_rows(out_atlas, out_slots, core(ctxs, coarses))
+
+        def f_fused(ctxs, out_atlas, out_slots, arg_views):
+            self._timed("latent_dpm", lambda: fused(ctxs, out_atlas, out_slots, arg_views))
+
+        return InfiniteTensor(
+            lambda ctxs, coarses: self._timed("latent_dpm", lambda: core(ctxs, coarses)),
+            out_win, args=(self.coarse,), args_windows=(coarse_win,),
+            tensor_id="dpm_latent_map", f_fused=f_fused if self.mesh is None else None,
+            counts=counts, **kw)
+
     def _build_latent_stage(self):
         TILE, STRIDE = 64, 32
         sigmas0 = float(compute_sigmas(SCHED, 20)[0])
@@ -729,6 +834,8 @@ class WorldPipeline:
         self._graphs.reserve(self.base_model, buckets[-1])
         kw = dict(batch_buckets=buckets, tile_store=self.tile_store, device=self.device,
                   shape=(6, None, None), device_cache_tiles=256, defer_host=self._defer_host)
+        if self.latent_sampler == "dpm":
+            return self._build_dpm_latent_stage(out_win, coarse_win, kw)
         if self.T == 1:
             t1_counts = self._stage_counts("latent_t1")
             init_f = self._latent_program(t_init, 5819, False, t1_counts)[0]

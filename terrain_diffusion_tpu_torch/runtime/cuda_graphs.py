@@ -17,11 +17,14 @@ stage batch buckets bound them):
 
 The static inputs of a signature are views of one buffer per model and
 input, sized for the largest batch the model's stage sends (``reserve``),
-so the buckets of a model share them.  A capture runs the model's
-``forward`` directly, in the capturing thread's own capture mode, so no
-forward hook fires and other threads' CUDA work neither breaks it nor is
-broken by it.  The kernels' ``launches`` counters (``ops/cuda_lib.py``)
-count a replay's captured launches as an eager forward counts them.
+so the buckets of a model share them.  They are made at the model's first
+forward, eager as it is: a forward's memory peak then holds them whether
+the forward runs eagerly or is captured later, so the peak does not depend
+on which signatures recur first.  A capture runs the model's ``forward``
+directly, in the capturing thread's own capture mode, so no forward hook
+fires and other threads' CUDA work neither breaks it nor is broken by it.
+The kernels' ``launches`` counters (``ops/cuda_lib.py``) count a replay's
+captured launches as an eager forward counts them.
 
 The caller decides where graphs engage (``WorldPipeline._forward``: a card,
 no mesh, no autograd); the cache serves one thread at a time, as the world
@@ -84,6 +87,7 @@ class ForwardGraphs:
         if g is None:
             if key not in self._seen:
                 self._seen.add(key)
+                self._static_inputs(model, [x, noise_labels, *cond])
                 return model.forward(x, noise_labels, cond)
             g = self._capture(model, x, noise_labels, cond)
             if g is None:
